@@ -9,7 +9,7 @@ Backends (the reference's runtime-selectable nl/nv/b triple,
 ``Dots.hs:139-146,181-186`` — its de-facto cross-backend consistency test):
 
 * ``np``  — NumPy float64 oracle (role of nl/nv)
-* ``jax`` — JAX/XLA, jitted (role of b/hmatrix); runs on TPU when present
+* ``jax`` — JAX/XLA, jitted (role of b/hmatrix); runs on the GPU when present
 * reference aliases ``nl``/``nv`` (-> np) and ``b`` (-> jax) are accepted
 """
 
@@ -24,12 +24,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, gen_net, squared_error
-from tensor_ops_tpu.models.training import (batched_run, train_fold,
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, gen_net, squared_error
+from tensor_ops.models.training import (batched_run, train_fold,
                                             train_minibatch)
-from tensor_ops_tpu.utils.timing import timed
+from tensor_ops.utils.timing import timed
 
 BACKEND_ALIASES = {
     "np": "np",
@@ -81,7 +81,7 @@ def net_test(backend_name: str, rate: float, n: int, hidden: List[int],
     net = gen_net(T.NumpyBackend(), 2, 1,
                   [(h, act_logistic()) for h in hidden], act_logistic(), np_rng)
     if be.name != "numpy":
-        from tensor_ops_tpu.models.feedforward import Network
+        from tensor_ops.models.feedforward import Network
 
         net = Network(net.op, tuple(be.asarray(p) for p in net.params),
                       net.act_names)
@@ -136,7 +136,7 @@ def main(argv=None):
             "Trains a feed-forward neural network on a 2D classifier using "
             "tensor-ops machinery, with the given backends. (If none "
             "provided, backend defaults to 'jax')\n\n"
-            "Backends:\n- np: NumPy (oracle)\n- jax: JAX/XLA (TPU when present)\n"
+            "Backends:\n- np: NumPy (oracle)\n- jax: JAX/XLA (GPU when present)\n"
             "- nl, nv, b: reference aliases for np, np, jax"
         ),
         formatter_class=argparse.RawDescriptionHelpFormatter,
@@ -150,7 +150,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0, help="RNG seed (reproducible runs)")
     p.add_argument("--minibatch", type=int, default=0,
                    help="Train with vmapped minibatches of this size instead of "
-                        "per-sample SGD (TPU fast path; 0 = per-sample like the reference)")
+                        "per-sample SGD (fast path; 0 = per-sample like the reference)")
     p.add_argument("backends", nargs="*", default=["jax"],
                    help="Backends to train with: subset of {np, jax, nl, nv, b}")
     args = p.parse_args(argv)
@@ -175,4 +175,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from tensor_ops.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     main()

@@ -4,7 +4,7 @@ matrix, white-noise class, and digit induction — the rebuild of
 ``/root/reference/app/MNIST.hs`` with the same flags/defaults
 (``MNIST.hs:89-133``) and reporting UX (``MNIST.hs:320-367``).
 
-Rebuild extras (TPU-first): ``--minibatch N`` trains with vmapped
+Rebuild extras: ``--minibatch N`` trains with vmapped
 minibatches jitted into one XLA program per step (the reference is
 strictly per-sample SGD, ``MNIST.hs:390-396``); ``--epochs`` bounds the
 reference's run-to-Ctrl-C loop; ``--seed`` makes runs reproducible (the
@@ -21,25 +21,24 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     cross_entropy,
     gen_net,
 )
-from tensor_ops_tpu.models.training import (
+from tensor_ops.models.training import (
     accuracy,
     batched_run,
     confusion,
     train_fold,
     train_minibatch,
 )
-from tensor_ops_tpu.models.fast import FusedMLP
-from tensor_ops_tpu.utils.checkpoint import save_network_async
-from tensor_ops_tpu.utils.mnist_data import load_mnist
-from tensor_ops_tpu.utils.timing import timed
+from tensor_ops.utils.checkpoint import save_network_async
+from tensor_ops.utils.mnist_data import load_mnist
+from tensor_ops.utils.timing import timed
 
 
 def one_hot(i: int, n: int) -> np.ndarray:
@@ -109,9 +108,6 @@ def main(argv=None):
     p.add_argument("--backend", choices=["jax", "np"], default="jax")
     p.add_argument("--minibatch", type=int, default=0,
                    help="Vmapped minibatch size (0 = per-sample SGD like the reference)")
-    p.add_argument("--fused", action="store_true",
-                   help="Train minibatches with the whole-step Pallas mega-kernel "
-                        "(fwd+bwd+SGD in one kernel; requires --minibatch and jax backend)")
     p.add_argument("--limit", type=int, default=0,
                    help="Subsample the training set to N samples (0 = all)")
     p.add_argument("--metrics", type=str, default=None,
@@ -130,10 +126,6 @@ def main(argv=None):
     hi = 10 if args.white else 9   # -w adds the eleventh class
     if args.induce is not None and not (0 <= args.induce <= hi):
         p.error(f"Number {args.induce} out of range ({hi})")
-    if args.fused and args.minibatch <= 1:
-        p.error("--fused requires --minibatch N (the mega-kernel trains minibatches)")
-    if args.fused and args.backend != "jax":
-        p.error("--fused requires the jax backend")
 
     layers = [int(x) for x in args.layers.split(",") if x]
 
@@ -173,18 +165,17 @@ def main(argv=None):
 
     noise_rng = np.random.default_rng(args.seed + 2)
 
-    from tensor_ops_tpu.utils.metrics import MetricsLogger
+    from tensor_ops.utils.metrics import MetricsLogger
 
     metrics = MetricsLogger(args.metrics)
     global_batch = 0
     if args.require_real_data and args.metrics:
         # provenance header: what data this trajectory was measured on
-        from tensor_ops_tpu.utils.mnist_data import verify_real_mnist
+        from tensor_ops.utils.mnist_data import verify_real_mnist
 
         metrics.log(0, kind="header", seed=args.seed, rate=args.rate,
                     layers=layers, batch=args.batch, white=args.white,
                     limit=args.limit, minibatch=args.minibatch,
-                    fused=args.fused,
                     data=verify_real_mnist(args.data))
 
     def white_extras(n: int):
@@ -205,7 +196,6 @@ def main(argv=None):
         return np.concatenate([a, b_rows])
 
     epoch = 1
-    fused_model = None
     ckpt_future = None
     try:
         while args.epochs == 0 or epoch <= args.epochs:
@@ -230,21 +220,8 @@ def main(argv=None):
                 print(f"Batch {bnum} ...")
 
                 def train_chunk():
-                    nonlocal net, fused_model
-                    if args.fused:
-                        if fused_model is None:
-                            fused_model = FusedMLP.from_network(net)
-                        for k in range(0, len(xs), args.minibatch):
-                            _, fused_model = fused_model.train_fullfused(
-                                args.rate,
-                                be.asarray(xs[k : k + args.minibatch]),
-                                be.asarray(ys[k : k + args.minibatch]),
-                            )
-                        # reflect updated params back into the IR network
-                        # for validation/induction
-                        net = net.__class__(net.op, fused_model.to_params(),
-                                            net.act_names)
-                    elif args.minibatch > 1:
+                    nonlocal net
+                    if args.minibatch > 1:
                         for k in range(0, len(xs), args.minibatch):
                             _, net = train_minibatch(
                                 net, loss, be, args.rate,
@@ -311,4 +288,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from tensor_ops.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     main()

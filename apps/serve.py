@@ -24,11 +24,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.models import activation_by_name, gen_net
-from tensor_ops_tpu.models.fast import FusedMLP, QuantizedMLP
-from tensor_ops_tpu.models.serve import Predictor
-from tensor_ops_tpu.utils.checkpoint import load_arrays, network_from_arrays
+import tensor_ops as T
+from tensor_ops.models import activation_by_name, gen_net
+from tensor_ops.models.fast import FusedMLP, QuantizedMLP
+from tensor_ops.models.serve import Predictor
+from tensor_ops.utils.checkpoint import load_arrays, network_from_arrays
 
 
 def load_recurrent_model(payload, layers, in_dim: int, out_dim: int,
@@ -37,9 +37,9 @@ def load_recurrent_model(payload, layers, in_dim: int, out_dim: int,
     ``arch`` metadata when present (new checkpoints; no flags needed),
     else from the CLI architecture flags — and load the checkpoint's
     states + params into it (count- and shape-validated)."""
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.utils.checkpoint import recurrent_from_arrays
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.utils.checkpoint import recurrent_from_arrays
 
     be = T.JaxBackend()
     arrays, meta = payload
@@ -77,7 +77,7 @@ def load_model(path: str, layers, in_dim: int, out_dim: int, int8: bool,
     names stored in the checkpoint (``save_network`` since round 2);
     older checkpoints without them fall back to the ``--act`` flag for
     hidden layers + softmax out."""
-    from tensor_ops_tpu.utils import checkpoint as C
+    from tensor_ops.utils import checkpoint as C
 
     arrays, meta = preloaded if preloaded is not None else load_arrays(path)
     kind = meta.get("kind", "network")
@@ -88,7 +88,7 @@ def load_model(path: str, layers, in_dim: int, out_dim: int, int8: bool,
         return QuantizedMLP.from_fused(fm) if int8 else fm
     # staged-IR Network checkpoint: rebuild the graph, then load params
     be = T.JaxBackend()
-    from tensor_ops_tpu.backend.rng import Rng
+    from tensor_ops.backend.rng import Rng
 
     saved_acts = meta.get("acts")
     if saved_acts is not None:
@@ -136,7 +136,7 @@ def read_batch(path: str, in_dim: int) -> np.ndarray:
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="tensor-ops-serve",
-        description="Serve a trained tensor-ops-tpu checkpoint")
+        description="Serve a trained tensor-ops checkpoint")
     p.add_argument("checkpoint", help=".npz checkpoint path")
     p.add_argument("-l", "--layers", type=str, default="300,100",
                    help="Hidden sizes for bare Network checkpoints "
@@ -144,10 +144,10 @@ def main(argv=None):
     p.add_argument("--in-dim", type=int, default=784)
     p.add_argument("--out-dim", type=int, default=10)
     p.add_argument("--int8", action="store_true",
-                   help="Quantize weights to int8 at load (w8a8 MXU path)")
+                   help="Quantize weights to int8 at load (w8a8 layers)")
     p.add_argument("--bf16", action="store_true",
-                   help="Store weights in bfloat16 (half the HBM "
-                        "footprint, latency parity — see BENCH.md)")
+                   help="Store weights in bfloat16 (half the weight "
+                        "bytes in device memory)")
     p.add_argument("--act", type=str, default="logistic",
                    choices=("logistic", "relu", "tanh"),
                    help="Hidden activation for OLD bare-Network "
@@ -219,8 +219,8 @@ def serve_recurrent(p, args, layers, buckets, payload):
     SequencePredictor (input: a ``(B, n, in_dim)`` .npy/.npz; output:
     one line per sequence — the final timestep's outputs, or the full
     per-timestep trajectory with ``--probs``)."""
-    from tensor_ops_tpu.models.serve import SequencePredictor
-    from tensor_ops_tpu.ops.shapes import ShapeError
+    from tensor_ops.models.serve import SequencePredictor
+    from tensor_ops.ops.shapes import ShapeError
 
     try:
         rnet, be = load_recurrent_model(
@@ -274,4 +274,7 @@ def serve_recurrent(p, args, layers, buckets, payload):
 
 
 if __name__ == "__main__":
+    from tensor_ops.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     main()

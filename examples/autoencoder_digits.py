@@ -10,11 +10,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, gen_net, squared_error
-from tensor_ops_tpu.models.autoencoder import Encoder
-from tensor_ops_tpu.utils.mnist_data import load_mnist
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, gen_net, squared_error
+from tensor_ops.models.autoencoder import Encoder
+from tensor_ops.utils.mnist_data import load_mnist
 
 
 def main():

@@ -21,9 +21,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -32,24 +32,13 @@ from tensor_ops_tpu.models import (
     fit,
     gen_net,
 )
-from tensor_ops_tpu.parallel import describe_plans, plan_meshes
-from tensor_ops_tpu.utils.profiling import training_memory_report
+from tensor_ops.parallel import describe_plans, plan_meshes
+from tensor_ops.utils.profiling import training_memory_report
 
 
 def main():
     import jax
 
-    if len(jax.devices()) < 8:
-        # self-provision a virtual 8-device CPU mesh when launched bare
-        # (same pattern as examples/pipeline_parallel.py)
-        try:
-            import jax._src.xla_bridge as _xb
-
-            jax.config.update("jax_platforms", "cpu")
-            jax.config.update("jax_num_cpu_devices", 8)
-            _xb._clear_backends()
-        except Exception:
-            pass
     n_dev = len(jax.devices())
     be = T.JaxBackend()
     # the reference's flagship shape (MNIST.hs:89-104)
@@ -76,7 +65,7 @@ def main():
               f"(dp={best['data']}, tp={best['model']}) below)")
 
     print("\n== training-state budget for the winner, per optimizer ==")
-    from tensor_ops_tpu.parallel.mesh import make_mesh
+    from tensor_ops.parallel.mesh import make_mesh
 
     mesh = make_mesh(n_dev, shape=(best["data"], best["model"]))
     for name, opt in (("adam", adam()), ("adam8bit", adam8bit())):
@@ -90,8 +79,8 @@ def main():
                   f"total {r['training_state_total_bytes'] / 1e6:6.2f} MB")
 
     print("\n== XLA's compiled per-device bytes for the real forward ==")
-    from tensor_ops_tpu.models.training import batched_run
-    from tensor_ops_tpu.utils.profiling import memory_analysis
+    from tensor_ops.models.training import batched_run
+    from tensor_ops.utils.profiling import memory_analysis
 
     r = np.random.default_rng(0)
     X = r.uniform(0, 1, size=(batch, 784))

@@ -9,8 +9,8 @@
 
 Everything here is surface the reference lacks (its loop is an inline
 ``foldl'`` to Ctrl-C, ``app/MNIST.hs:297-313``); the model and task are
-the reference's dots-style toy so the script runs in seconds on CPU or
-TPU alike.
+the reference's dots-style toy so the script runs in seconds on the CPU
+or the GPU alike.
 """
 
 import os
@@ -21,9 +21,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     Predictor,
     act_relu,
     act_softmax,
@@ -31,8 +31,8 @@ from tensor_ops_tpu.models import (
     fit,
     gen_net,
 )
-from tensor_ops_tpu.models.fast import FusedMLP, QuantizedMLP
-from tensor_ops_tpu.models.optim import adamw, cosine_schedule
+from tensor_ops.models.fast import FusedMLP, QuantizedMLP
+from tensor_ops.models.optim import adamw, cosine_schedule
 
 
 def make_data(n, seed):

@@ -3,7 +3,7 @@
 // Role in the architecture: the reference reaches native code through
 // hmatrix -> C BLAS/LAPACK for its dense math (stack.yaml:40-45,
 // src/TensorOps/BLAS/HMat.hs); its data pipeline is mnist-idx + zlib.
-// Here the TPU compute path is XLA/Pallas (native via the runtime), and
+// Here the device compute path is XLA (native via the runtime), and
 // this library supplies the host-side native pieces:
 //
 //   * reference math kernels (generalized contraction `gmul` with the

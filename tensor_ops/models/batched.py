@@ -1,0 +1,148 @@
+"""Batched lowering: rebuild a per-sample Network graph as a BATCHED
+staged-IR graph whose loss is the batch mean — batch as tensor
+dimensions inside the IR, not as ``jax.vmap`` outside it.
+
+Why this exists: ``vmap(per-sample transposition)`` + ``mean`` leaves
+the weight gradients as B stacked per-sample outer products whose
+reduction XLA must rewrite into a GEMM; where it does not (it was seen
+to skip the rewrite for bf16), the flagship step materializes
+``[4096, 300, 784]`` per-sample gradients.  Lowering the batch INTO the
+graph makes the weight gradient a GEMM *by construction*: the batched
+``GMul``'s own transposition rule contracts over the batch axis
+(``dy = gmul(transp(x), dz)`` — one ``dot_general``), so no XLA rewrite
+is needed in any dtype.  The per-sample graph remains the semantic
+reference.
+
+Supported graphs: ``gen_net``-style chains — segments of the ffLayer
+pattern ``First(swap >> matVec, rest=[(o,)]) >> add`` followed by any
+parameterless single-chain tail (elementwise ``LiftOp``s widen to the
+batched shape; anything else — e.g. softmax's sumRows/outer internals —
+wraps in :class:`~tensor_ops.ops.loops.MappedOp`, which is safe
+because tails carry no parameters).  ``batched_loss_graph`` returns
+None for graphs outside this family; callers fall back to the vmapped
+per-sample path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..ops.ir import (
+    BroadcastRows,
+    Compose,
+    First,
+    GMul,
+    LiftOp,
+    Second,
+    Shuffle,
+    SumOp,
+    TOp,
+    Transp,
+)
+from ..ops.loops import MappedOp
+from ..ops import prim as P
+
+
+def _flatten(op: TOp) -> List[TOp]:
+    if isinstance(op, Compose):
+        return _flatten(op.f) + _flatten(op.g)
+    return [op]
+
+
+def _batched_linear(B: int, i: int, o: int) -> TOp:
+    """[(B,i) x, (o,i) w, (o,) b] -> [(B,o)]: one batched contraction +
+    broadcast bias — whose transposes are the GEMM weight gradient
+    (contract over B) and the bias row-sum."""
+    return (
+        Second(First(Transp((o, i)), rest=[(o,)]), front=[(B, i)])
+        >> First(GMul((B,), (i,), (o,)), rest=[(o,)])
+        >> Second(BroadcastRows((o,), B), front=[(B, o)])
+        >> SumOp(2, (B, o))
+    )
+
+
+def _batch_tail_node(nd: TOp, B: int) -> Optional[TOp]:
+    """Batch a parameterless tail node: elementwise LiftOps widen to the
+    batched shape (stays one fused XLA op); anything else vmaps at the
+    IR level via MappedOp (fine — no parameters flow through tails, so
+    no per-sample parameter gradients can materialize)."""
+    if isinstance(nd, LiftOp) and nd.vf.n_args == 1:
+        return LiftOp(nd.vf, (B,) + nd.shape)
+    for sh in nd.in_stack + nd.out_stack:
+        if len(sh) != 1 and sh != ():
+            return None
+    return MappedOp(nd, B)
+
+
+def _batch_segment(seg: TOp, B: int) -> Optional[TOp]:
+    nodes = _flatten(seg)
+    if len(nodes) >= 2 and isinstance(nodes[0], First):
+        inner = _flatten(nodes[0].op)
+        if (
+            len(inner) == 2
+            and isinstance(inner[0], Shuffle)
+            and inner[0].idxs == (1, 0)
+            and isinstance(inner[1], GMul)
+            and len(inner[1].ms) == 1
+            and len(inner[1].os) == 1
+            and not inner[1].ns
+        ):
+            o, i = inner[1].ms[0], inner[1].os[0]
+            if (
+                nodes[0].rest == ((o,),)
+                and isinstance(nodes[1], SumOp)
+                and nodes[1].n == 2
+                and nodes[1].shape == (o,)
+            ):
+                op = _batched_linear(B, i, o)
+                for nd in nodes[2:]:
+                    b = _batch_tail_node(nd, B)
+                    if b is None:
+                        return None
+                    op = op >> b
+                return op
+    # parameterless segment (e.g. a lifted activation net): map whole
+    if len(seg.in_stack) == 1:
+        ok = all(len(sh) <= 1 for sh in seg.in_stack + seg.out_stack)
+        return MappedOp(seg, B) if ok else None
+    return None
+
+
+def batch_network_op(net_op: TOp, B: int) -> Optional[TOp]:
+    """The batched network graph ``([x (B,i)] + params) -> [(B,o)]``
+    with UNBATCHED parameter slots, or None when the graph falls outside
+    the supported family."""
+    cur = None
+    from .feedforward import unchain
+
+    for seg in unchain(net_op):
+        bseg = _batch_segment(seg, B)
+        if bseg is None:
+            return None
+        cur = bseg if cur is None else First(cur, rest=seg.in_stack[1:]) >> bseg
+    return cur
+
+
+def batched_loss_graph(net, loss: TOp, B: int) -> Optional[TOp]:
+    """``([x (B,i)] + params + [targets (B,o)]) -> scalar`` batch-MEAN
+    loss over the batched network graph — gradients w.r.t. the param
+    slots come out of ONE framework transposition as GEMM-shaped
+    contractions over the batch axis.  Cached per (loss, B) on the
+    network op.  None when the network graph isn't batchable."""
+    key = ("batched_loss", loss.struct_key(), B)
+    g = net.op._compiled.get(key)
+    if g is not None:
+        return g if g is not False else None
+    bop = batch_network_op(net.op, B)
+    if bop is None:
+        net.op._compiled[key] = False  # negative result cached too
+        return None
+    tgt = (B,) + net.out_shape
+    g = (
+        First(bop, rest=[tgt])
+        >> MappedOp(loss, B)
+        >> P.sum_rows((B,))
+        >> P.scale((), 1.0 / B)
+    )
+    net.op._compiled[key] = g
+    return g

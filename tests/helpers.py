@@ -1,7 +1,7 @@
 """Shared test utilities — re-exported from the public
-:mod:`tensor_ops_tpu.testing` module (single source of truth)."""
+:mod:`tensor_ops.testing` module (single source of truth)."""
 
-from tensor_ops_tpu.testing import (  # noqa: F401
+from tensor_ops.testing import (  # noqa: F401
     check_grads,
     check_grads_vs_jax,
     fd_grad,

@@ -10,8 +10,8 @@ import pytest
 
 import apps.dots as dots
 import apps.mnist as mnist
-from tensor_ops_tpu.utils.idx import decode_idx, encode_idx, labeled_data
-from tensor_ops_tpu.utils.mnist_data import load_mnist
+from tensor_ops.utils.idx import decode_idx, encode_idx, labeled_data
+from tensor_ops.utils.mnist_data import load_mnist
 
 
 def run_cli(main, argv):
@@ -122,8 +122,8 @@ def test_mnist_loader_accepts_local_gz(tmp_path):
     dir and the loader decompresses and caches them."""
     import gzip
 
-    from tensor_ops_tpu.utils.idx import encode_idx
-    from tensor_ops_tpu.utils.mnist_data import MNIST_FILES
+    from tensor_ops.utils.idx import encode_idx
+    from tensor_ops.utils.mnist_data import MNIST_FILES
 
     rng = np.random.default_rng(0)
     for img_name, lbl_name in MNIST_FILES:
@@ -141,8 +141,8 @@ def test_mnist_loader_accepts_local_gz(tmp_path):
 def _write_fake_gz_set(tmp_path, n=20):
     import gzip
 
-    from tensor_ops_tpu.utils.idx import encode_idx
-    from tensor_ops_tpu.utils.mnist_data import MNIST_FILES
+    from tensor_ops.utils.idx import encode_idx
+    from tensor_ops.utils.mnist_data import MNIST_FILES
 
     rng = np.random.default_rng(0)
     for img_name, lbl_name in MNIST_FILES:
@@ -157,7 +157,7 @@ def test_require_real_data_rejects_wrong_checksums(tmp_path):
     """--require-real-data: .gz files whose md5 is not the canonical
     distribution's are refused with every failure named
     (VERDICT item 7; reference loader ``MNIST.hs:159-192``)."""
-    from tensor_ops_tpu.utils.mnist_data import RealDataError
+    from tensor_ops.utils.mnist_data import RealDataError
 
     _write_fake_gz_set(tmp_path)
     with pytest.raises(RealDataError, match="md5"):
@@ -167,14 +167,14 @@ def test_require_real_data_rejects_wrong_checksums(tmp_path):
 def test_require_real_data_rejects_missing_and_synthetic(tmp_path):
     """An empty dir (zero egress) and the synthetic fallback's 6000/1000
     shape signature both fail the gate."""
-    from tensor_ops_tpu.utils.mnist_data import RealDataError
+    from tensor_ops.utils.mnist_data import RealDataError
 
     with pytest.raises(RealDataError):
         load_mnist(str(tmp_path / "empty"), require_real=True)
     # produce the synthetic cache via the normal fallback, decompressed
     # into raw IDX names — still refused (shape signature mismatch)
-    from tensor_ops_tpu.utils.idx import encode_idx
-    from tensor_ops_tpu.utils.mnist_data import MNIST_FILES, _synthesize
+    from tensor_ops.utils.idx import encode_idx
+    from tensor_ops.utils.mnist_data import MNIST_FILES, _synthesize
 
     (trl, tri), (tel, tei) = _synthesize()
     d = tmp_path / "synth"
@@ -193,7 +193,7 @@ def test_require_real_data_accepts_canonical_md5(tmp_path, monkeypatch):
     import hashlib
     import json
 
-    from tensor_ops_tpu.utils import mnist_data
+    from tensor_ops.utils import mnist_data
 
     _write_fake_gz_set(tmp_path, n=30)
     fake_md5 = {}
@@ -214,20 +214,6 @@ def test_require_real_data_accepts_canonical_md5(tmp_path, monkeypatch):
     assert recs[0]["kind"] == "header" and recs[0]["seed"] == 7
     assert recs[0]["data"]["train-images-idx3-ubyte"]["source"] == "gz"
     assert any("val_err" in r for r in recs[1:])
-
-
-def test_mnist_cli_fused_megakernel(tmp_path):
-    out = run_cli(
-        mnist.main,
-        ["--epochs", "1", "--limit", "400", "-b", "400", "--minibatch", "100",
-         "--fused", "-r", "0.3", "-d", str(tmp_path), "-c"],
-    )
-    assert "Training:" in out and "Validation:" in out
-
-
-def test_mnist_fused_requires_minibatch(tmp_path):
-    with pytest.raises(SystemExit):
-        run_cli(mnist.main, ["--fused", "-d", str(tmp_path)])
 
 
 def test_dots_seed_determinism():
@@ -260,9 +246,9 @@ def test_require_real_data_rejects_tampered_decoded_cache(tmp_path, monkeypatch)
     cache file; a verified .gz must not certify a tampered raw file."""
     import hashlib
 
-    from tensor_ops_tpu.utils import mnist_data
-    from tensor_ops_tpu.utils.idx import encode_idx
-    from tensor_ops_tpu.utils.mnist_data import MNIST_FILES, RealDataError
+    from tensor_ops.utils import mnist_data
+    from tensor_ops.utils.idx import encode_idx
+    from tensor_ops.utils.mnist_data import MNIST_FILES, RealDataError
 
     _write_fake_gz_set(tmp_path, n=10)
     fake_md5 = {}

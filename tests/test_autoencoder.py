@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, gen_net, squared_error
-from tensor_ops_tpu.models.autoencoder import Encoder
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, gen_net, squared_error
+from tensor_ops.models.autoencoder import Encoder
 
 
 def make_enc(be, seed=5):
@@ -39,7 +39,7 @@ def test_grad_matches_finite_differences(nb):
             pm = [p.copy() for p in enc.encoder.params]
             pp[k][idx] += eps
             pm[k][idx] -= eps
-            from tensor_ops_tpu.models.feedforward import Network
+            from tensor_ops.models.feedforward import Network
 
             ep = Encoder(Network(enc.encoder.op, tuple(pp)), enc.decoder)
             em = Encoder(Network(enc.encoder.op, tuple(pm)), enc.decoder)
@@ -50,7 +50,7 @@ def test_grad_matches_finite_differences(nb):
     pm = [p.copy() for p in enc.decoder.params]
     pp[1][2] += eps
     pm[1][2] -= eps
-    from tensor_ops_tpu.models.feedforward import Network
+    from tensor_ops.models.feedforward import Network
 
     ep = Encoder(enc.encoder, Network(enc.decoder.op, tuple(pp)))
     em = Encoder(enc.encoder, Network(enc.decoder.op, tuple(pm)))
@@ -76,7 +76,7 @@ def test_training_reduces_reconstruction_loss(nb):
 
 
 def test_parity_numpy_jax(nb, jb):
-    from tensor_ops_tpu.models.feedforward import Network
+    from tensor_ops.models.feedforward import Network
 
     enc = make_enc(nb, seed=9)
     jenc = Encoder(
@@ -95,12 +95,12 @@ def test_parity_numpy_jax(nb, jb):
 
 
 def test_fused_autoencoder_matches_ir_single_sample(jb):
-    """FusedAutoencoder (whole-step Pallas kernel, squared_error mode)
+    """FusedAutoencoder (jax.grad of the plain chain, squared error)
     == the staged-IR Encoder.train joint step at batch 1."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.models import squared_error
-    from tensor_ops_tpu.models.fast import FusedAutoencoder
+    from tensor_ops.models import squared_error
+    from tensor_ops.models.fast import FusedAutoencoder
 
     enc = make_enc(jb)
     loss = squared_error(6)
@@ -124,7 +124,7 @@ def test_fused_autoencoder_batch_training_converges(jb):
     """Batched fused AE training drives reconstruction loss down."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.models.fast import FusedAutoencoder
+    from tensor_ops.models.fast import FusedAutoencoder
 
     enc = make_enc(jb, seed=9)
     fae = FusedAutoencoder.from_encoder(enc)
@@ -148,10 +148,10 @@ def test_encoder_fit_production_loop(jb):
     split back into encoder/decoder correctly)."""
     import numpy as np
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import (Encoder, act_logistic, gen_net,
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import (Encoder, act_logistic, gen_net,
                                        squared_error)
-    from tensor_ops_tpu.models.optim import adam
+    from tensor_ops.models.optim import adam
 
     rng = Rng(jb, seed=0)
     enc = gen_net(jb, 8, 3, [(12, act_logistic())], act_logistic(), rng)
@@ -181,10 +181,10 @@ def test_encoder_fit_preserves_act_names(jb):
     trained artifact; then() concatenates act_names."""
     import numpy as np
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import (Encoder, act_logistic, gen_net,
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import (Encoder, act_logistic, gen_net,
                                        squared_error)
-    from tensor_ops_tpu.models.fast import FusedMLP
+    from tensor_ops.models.fast import FusedMLP
 
     rng = Rng(jb, seed=0)
     enc = gen_net(jb, 6, 2, [(8, act_logistic())], act_logistic(), rng)
@@ -208,11 +208,11 @@ def test_graph_altering_composition_drops_metadata(jb):
     op.  Encoder.train (per-sample path) preserves metadata like fit."""
     import pytest
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import (Encoder, act_logistic, gen_net,
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import (Encoder, act_logistic, gen_net,
                                        squared_error)
-    from tensor_ops_tpu.models.fast import FusedMLP
-    from tensor_ops_tpu.ops import prim as P
+    from tensor_ops.models.fast import FusedMLP
+    from tensor_ops.ops import prim as P
 
     rng = Rng(jb, seed=0)
     net = gen_net(jb, 4, 2, [(6, act_logistic())], act_logistic(), rng)
@@ -222,7 +222,7 @@ def test_graph_altering_composition_drops_metadata(jb):
     with pytest.raises(ValueError, match="act"):
         FusedMLP.from_network(doubled)
 
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     rnet = gen_rnet(jb, 2, 1, [(4, act_logistic(), act_logistic())],
                     act_logistic(), None, Rng(jb, seed=1))

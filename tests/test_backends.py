@@ -1,27 +1,25 @@
-"""NumPy-oracle vs JAX/XLA backend parity (<=1e-6 forward and backward —
-BASELINE.md target; achieved at ~1e-12 in f64)."""
-
-import os
+"""NumPy-oracle vs JAX/XLA backend parity (<=1e-6 forward and backward;
+achieved at ~1e-12 in f64)."""
 
 import numpy as np
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.ops import ir
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops import prim as P
+from tensor_ops.ops import ir
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     cross_entropy,
     gen_net,
     squared_error,
 )
-from tensor_ops_tpu.models.feedforward import Network
-from tensor_ops_tpu.backend.rng import Rng
+from tensor_ops.models.feedforward import Network
+from tensor_ops.backend.rng import Rng
 
 TOL = 1e-9
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 def _to_jax(jb, xs):
@@ -49,7 +47,7 @@ def test_gmul_parity(nb, jb):
 
 def test_pipeline_grad_parity(nb, jb):
     # full softmax + cross-entropy pipeline
-    from tensor_ops_tpu.models.neuralnet import softmax
+    from tensor_ops.models.neuralnet import softmax
 
     v = r(3, 5)
     t = np.zeros(5)
@@ -81,7 +79,7 @@ def test_jit_cache_reuse(jb):
     """Repeated runs reuse the same compiled program (cache keyed on the
     op object)."""
     op = P.mat_vec(3, 2)
-    from tensor_ops_tpu import engine
+    from tensor_ops import engine
 
     f1 = engine.compile_run(op, jb)
     f2 = engine.compile_run(op, jb)
@@ -92,8 +90,8 @@ def test_loss_curve_parity_across_backends(nb, jb):
     """BASELINE north star: reproducible loss curves — per-sample SGD on
     the dots task tracks between the NumPy-f64 oracle and the JAX-f64
     path to 1e-9 at every step over a 60-step run."""
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, gen_net, squared_error
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, gen_net, squared_error
 
     rng = Rng(nb, seed=20)
     net_n = gen_net(nb, 2, 1, [(8, act_logistic())], act_logistic(), rng)
@@ -112,11 +110,8 @@ def test_loss_curve_parity_across_backends(nb, jb):
         net_n = net_n.train(loss, 1.0, nb, X[k], Y[k])
         net_j = net_j.train(loss, 1.0, jb, jb.asarray(X[k]), jb.asarray(Y[k]))
     diffs = np.abs(np.asarray(curve_n) - np.asarray(curve_j))
-    # 1e-9 on CPU f64; the real TPU emulates f64 in software (~1e-8
-    # relative, same allowance as test_fuzz), so the opt-in on-device
-    # run gets the looser bound.
-    tol = 1e-6 if os.environ.get("TOPS_TEST_TPU") == "1" else 1e-9
-    assert diffs.max() < tol, diffs.max()
+    # f64 on both backends: the curves agree to 1e-9
+    assert diffs.max() < 1e-9, diffs.max()
     assert np.isfinite(curve_n).all()
     # (convergence itself is asserted in test_models/test_apps; this test
     # pins the *bitwise-tracking* property of the two backends' curves)

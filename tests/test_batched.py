@@ -1,8 +1,8 @@
 """Batched lowering (models/batched.py): the batch-mean loss as a
 BATCHED staged-IR graph must produce exactly the vmapped per-sample
 mean gradients — while its weight gradients are GEMMs by construction
-(the bf16 fix: XLA-TPU does not rewrite stacked per-sample outer
-products into a GEMM for bf16; measured 70x slowdown, BENCH.md)."""
+(the bf16 fix: XLA need not rewrite stacked per-sample outer products
+into a GEMM for bf16)."""
 
 import numpy as np
 import pytest
@@ -10,9 +10,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_relu,
     act_softmax,
@@ -20,11 +20,11 @@ from tensor_ops_tpu.models import (
     gen_net,
     squared_error,
 )
-from tensor_ops_tpu.models.batched import (
+from tensor_ops.models.batched import (
     batch_network_op,
     batched_loss_graph,
 )
-from tensor_ops_tpu.ops import ir
+from tensor_ops.ops import ir
 
 
 def _net(be, seed=0):
@@ -76,8 +76,8 @@ def test_batched_forward_equals_per_sample(nb, jb):
 
 
 def test_batched_graph_caches_and_rejects_unknown(jb):
-    from tensor_ops_tpu.ops import prim as P
-    from tensor_ops_tpu.models.feedforward import Network
+    from tensor_ops.ops import prim as P
+    from tensor_ops.models.feedforward import Network
 
     net = _net(jb)
     loss = cross_entropy(4)
@@ -92,8 +92,8 @@ def test_batched_graph_caches_and_rejects_unknown(jb):
 
 
 def test_broadcast_rows_primitive(nb, jb):
-    from tensor_ops_tpu.ops import prim as P
-    from tensor_ops_tpu.testing import check_grads
+    from tensor_ops.ops import prim as P
+    from tensor_ops.testing import check_grads
 
     op = P.broadcast_rows((3,), 4)
     # scalar-output wrapper for the FD check: broadcast, square, sum
@@ -110,7 +110,7 @@ def test_broadcast_rows_primitive(nb, jb):
 def test_fit_mixed_precision_uses_batched_graph(jb):
     """fit(mixed_precision=True) routes through the batched lowering
     (the graph lands in the cache) and still converges."""
-    from tensor_ops_tpu.models.trainer import fit
+    from tensor_ops.models.trainer import fit
 
     net = _net(jb, seed=5)
     r = np.random.default_rng(2)

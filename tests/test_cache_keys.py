@@ -7,9 +7,9 @@ import gc
 
 import numpy as np
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -18,7 +18,7 @@ from tensor_ops_tpu.models import (
     sgd,
     squared_error,
 )
-from tensor_ops_tpu.models.trainer import fit, make_opt_step
+from tensor_ops.models.trainer import fit, make_opt_step
 
 
 def _net(be, o=4):
@@ -39,7 +39,7 @@ def test_struct_key_distinguishes_ops():
 def test_struct_key_distinguishes_captured_values():
     """User lambdas capturing different values must NOT collide even
     though they share a code site."""
-    from tensor_ops_tpu.ops import prim as P
+    from tensor_ops.ops import prim as P
 
     def scaled(k):
         return P.map_op((3,), lambda x: x * k)
@@ -135,7 +135,7 @@ def test_accum_steps_divisibility_validated(jb):
 def test_callable_key_bound_methods_never_collide():
     """Bound methods expose a shared __code__ but behavior depends on
     __self__ state — they must key by identity, not structure."""
-    from tensor_ops_tpu.ops.vfunc import callable_key
+    from tensor_ops.ops.vfunc import callable_key
 
     class Act:
         def __init__(self, gain):
@@ -151,7 +151,7 @@ def test_callable_key_bound_methods_never_collide():
 def test_callable_key_distinguishes_global_bindings():
     """Same code text compiled against different global bindings is
     different behavior (exec-built factories)."""
-    from tensor_ops_tpu.ops.vfunc import callable_key
+    from tensor_ops.ops.vfunc import callable_key
 
     def build(gain):
         ns = {"GAIN": gain}
@@ -167,7 +167,7 @@ def test_callable_key_same_site_lambdas_still_equal():
     equal."""
     import jax.numpy as jnp  # noqa: F401
 
-    from tensor_ops_tpu.ops.vfunc import callable_key
+    from tensor_ops.ops.vfunc import callable_key
 
     def build():
         import jax.numpy as jnp
@@ -178,7 +178,7 @@ def test_callable_key_same_site_lambdas_still_equal():
 
 
 def test_callable_key_recursive_global_terminates():
-    from tensor_ops_tpu.ops import vfunc as V
+    from tensor_ops.ops import vfunc as V
 
     src = "def fact(n):\n    return 1 if n <= 1 else n * fact(n - 1)"
     ns = {}
@@ -191,10 +191,10 @@ def test_compiled_cache_is_bounded_lru(jb):
     """Cycling 100 sequence lengths through a SequencePredictor must not
     grow the op cache past its LRU bound, and hot keys must stay cached
     (no recompile of recently used entries)."""
-    from tensor_ops_tpu.models import act_logistic
-    from tensor_ops_tpu.models.recurrent import fully_connected
-    from tensor_ops_tpu.models.serve import SequencePredictor
-    from tensor_ops_tpu.ops.ir import CompiledCache
+    from tensor_ops.models import act_logistic
+    from tensor_ops.models.recurrent import fully_connected
+    from tensor_ops.models.serve import SequencePredictor
+    from tensor_ops.ops.ir import CompiledCache
 
     rng = Rng(jb, seed=0)
     rnet = fully_connected(act_logistic(), jb, 3, 3, rng)
@@ -215,7 +215,7 @@ def test_compiled_cache_is_bounded_lru(jb):
 
 
 def test_compiled_cache_evicts_cold_keys():
-    from tensor_ops_tpu.ops.ir import CompiledCache
+    from tensor_ops.ops.ir import CompiledCache
 
     c = CompiledCache(maxsize=4)
     for k in range(4):

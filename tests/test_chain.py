@@ -18,13 +18,13 @@ import os
 import numpy as np
 import pytest
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (act_logistic, act_softmax, cross_entropy,
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (act_logistic, act_softmax, cross_entropy,
                                    gen_net)
-from tensor_ops_tpu.models.optim import adam, adam8bit, cosine_schedule, sgd
-from tensor_ops_tpu.models.trainer import fit
-from tensor_ops_tpu.utils.native import NativeLoader
+from tensor_ops.models.optim import adam, adam8bit, cosine_schedule, sgd
+from tensor_ops.models.trainer import fit
+from tensor_ops.utils.native import NativeLoader
 
 
 def _mknet(be, seed=1):
@@ -87,7 +87,7 @@ def test_index_mode_python_fallback(monkeypatch):
     # the numpy fallback must agree with itself across modes (the
     # native/fallback streams use different RNGs, so parity is checked
     # per-implementation)
-    import tensor_ops_tpu.utils.native as nat
+    import tensor_ops.utils.native as nat
 
     monkeypatch.setattr(nat, "get_lib", lambda: None)
     X, Y = _data(103)
@@ -227,7 +227,7 @@ def test_chained_history_and_checkpoint_cadence(jb, tmp_path):
     r2 = fit(_mknet(jb), cross_entropy(4), jb, X, Y, chain_steps="auto",
              checkpoint_path=ck2, **kw)
     assert [r["step"] for r in r1.history] == [r["step"] for r in r2.history]
-    from tensor_ops_tpu.utils.checkpoint import load_train_state
+    from tensor_ops.utils.checkpoint import load_train_state
 
     tmpl = sgd().init(tuple(np.asarray(p) for p in r1.net.params))
     _, _, step1 = load_train_state(ck1 + ".state", tmpl)

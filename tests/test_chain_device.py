@@ -3,7 +3,7 @@
 The host-index chained path streams ``batch*4`` bytes of indices per
 step to the device; device mode computes them IN-GRAPH from
 counter-based threefry epoch permutations — zero host index traffic,
-the TPU-native production loop.  Contract pinned here: each epoch
+the production loop.  Contract pinned here: each epoch
 visits every row exactly once, indices are a pure function of
 ``(seed, absolute step)`` (so every window partition and every
 crash/resume chain replays the identical batch sequence bit for bit),
@@ -13,11 +13,11 @@ and the knob errors loudly where it cannot hold that contract.
 import numpy as np
 import pytest
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (act_logistic, act_softmax, cross_entropy,
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (act_logistic, act_softmax, cross_entropy,
                                    gen_net)
-from tensor_ops_tpu.models.optim import adam, cosine_schedule, sgd
-from tensor_ops_tpu.models.trainer import (_device_fixed_perm,
+from tensor_ops.models.optim import adam, cosine_schedule, sgd
+from tensor_ops.models.trainer import (_device_fixed_perm,
                                            _device_window_indices,
                                            _device_window_offsets, fit)
 

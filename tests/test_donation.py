@@ -29,11 +29,11 @@ import time
 import numpy as np
 import pytest
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (act_logistic, act_softmax,
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (act_logistic, act_softmax,
                                    cross_entropy, gen_net, squared_error)
-from tensor_ops_tpu.models.optim import adam, adam8bit, sgd
-from tensor_ops_tpu.models.trainer import (_make_ema_update,
+from tensor_ops.models.optim import adam, adam8bit, sgd
+from tensor_ops.models.trainer import (_make_ema_update,
                                            _sigint_shield, fit,
                                            fit_sequences, make_opt_step)
 
@@ -103,7 +103,7 @@ def test_fit_preserves_callers_network(jb):
 
 
 def test_fit_sequences_preserves_callers_network(jb):
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     r = np.random.default_rng(7)
     t = np.linspace(0, 4 * np.pi, 33)
@@ -165,7 +165,7 @@ def test_mesh_step_donates_and_keeps_shardings(jb):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from tensor_ops_tpu.parallel.mesh import make_mesh, param_specs
+    from tensor_ops.parallel.mesh import make_mesh, param_specs
 
     if len(jax.devices()) < 4:
         pytest.skip("needs >= 4 devices")

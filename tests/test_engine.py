@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu import engine
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.ops import ir
+import tensor_ops as T
+from tensor_ops import engine
+from tensor_ops import prim as P
+from tensor_ops.ops import ir
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 def test_compile_vjp_general_cotangents(nb, jb):
@@ -49,9 +49,9 @@ def test_bf16_backend_runs():
 def test_bf16_training_step():
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, cross_entropy, gen_net
-    from tensor_ops_tpu.models.training import train_minibatch
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, cross_entropy, gen_net
+    from tensor_ops.models.training import train_minibatch
 
     be = T.JaxBackend(dtype=jnp.bfloat16)
     rng = Rng(be, seed=0)
@@ -66,9 +66,9 @@ def test_bf16_training_step():
 def test_act_names_inferred_for_fused():
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, gen_net
-    from tensor_ops_tpu.models.fast import FusedMLP
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, gen_net
+    from tensor_ops.models.fast import FusedMLP
 
     be = T.JaxBackend(dtype=jnp.float64)
     rng = Rng(be, seed=0)
@@ -83,9 +83,9 @@ def test_cache_distinguishes_precision_and_native(nb):
     (regression: precision/use_native were missing from cache keys)."""
     import jax.numpy as jnp
 
-    import tensor_ops_tpu as T
-    from tensor_ops_tpu import engine
-    from tensor_ops_tpu import prim as P
+    import tensor_ops as T
+    from tensor_ops import engine
+    from tensor_ops import prim as P
 
     op = P.mat_vec(3, 2)
     jb_def = T.JaxBackend(dtype=jnp.float32)
@@ -105,10 +105,10 @@ def test_optimizer_cache_distinguishes_hyperparams(jb):
     jitted steps (regression)."""
     import numpy as np
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, cross_entropy, gen_net
-    from tensor_ops_tpu.models.optim import momentum
-    from tensor_ops_tpu.models.trainer import make_opt_step
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, cross_entropy, gen_net
+    from tensor_ops.models.optim import momentum
+    from tensor_ops.models.trainer import make_opt_step
 
     rng = Rng(jb, seed=0)
     net = gen_net(jb, 3, 2, [(4, act_logistic())], act_logistic(), rng)
@@ -123,10 +123,10 @@ def test_trained_network_keeps_act_names(jb):
     trained networks (regression)."""
     import numpy as np
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, cross_entropy, gen_net
-    from tensor_ops_tpu.models.fast import FusedMLP
-    from tensor_ops_tpu.models.training import train_fold, train_minibatch
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, cross_entropy, gen_net
+    from tensor_ops.models.fast import FusedMLP
+    from tensor_ops.models.training import train_fold, train_minibatch
 
     rng = Rng(jb, seed=0)
     net = gen_net(jb, 4, 2, [(3, act_logistic())], act_softmax(), rng)
@@ -143,9 +143,9 @@ def test_trained_network_keeps_act_names(jb):
 def test_checkpoint_extensionless_path_roundtrip(tmp_path, nb):
     """save/load work for paths without .npz (regression: np.savez used
     to append the extension)."""
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, gen_net
-    from tensor_ops_tpu.utils.checkpoint import load_network, save_network
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, gen_net
+    from tensor_ops.utils.checkpoint import load_network, save_network
 
     rng = Rng(nb, seed=0)
     net = gen_net(nb, 2, 2, [(3, act_logistic())], act_logistic(), rng)

@@ -12,11 +12,11 @@ import pytest
 import jax
 from jax.sharding import PartitionSpec as PSpec
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, act_softmax, cross_entropy, gen_net
-from tensor_ops_tpu.models.trainer import fit
-from tensor_ops_tpu.parallel.mesh import MODEL_AXIS, make_mesh, param_specs
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, act_softmax, cross_entropy, gen_net
+from tensor_ops.models.trainer import fit
+from tensor_ops.parallel.mesh import MODEL_AXIS, make_mesh, param_specs
 
 multi = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 devices (see conftest note)"
@@ -98,7 +98,7 @@ def test_fit_mesh_flagship_loss_curve_matches_single_device(jb):
 def test_fit_mesh_with_adam_and_clip(jb):
     """Optimizer state (param-shaped moments) composes with the mesh: the
     adam+clip sharded run equals the single-device one."""
-    from tensor_ops_tpu.models import adam
+    from tensor_ops.models import adam
 
     X, Y = _data(n=32, seed=5)
     loss = cross_entropy(10)
@@ -131,9 +131,9 @@ def test_restore_opt_state_keeps_shardings(jb):
     import jax
     from jax.sharding import NamedSharding
 
-    from tensor_ops_tpu.models.optim import adam
-    from tensor_ops_tpu.models.trainer import _restore_opt_state
-    from tensor_ops_tpu.parallel.mesh import make_mesh, param_specs
+    from tensor_ops.models.optim import adam
+    from tensor_ops.models.trainer import _restore_opt_state
+    from tensor_ops.parallel.mesh import make_mesh, param_specs
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -175,8 +175,8 @@ def test_fit_pipeline_mesh_matches_single_device(jb):
     IR with the full fit surface (adam, schedule) and lands on the SAME
     params as single-device fit — the pipelined gradient is exactly the
     sequential transposition-AD gradient."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.models import adam
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     r = np.random.default_rng(3)
     X = r.uniform(0, 1, size=(128, 12))
@@ -200,9 +200,9 @@ def test_fit_pipeline_mesh_resume(jb, tmp_path):
     """checkpoint/resume works on the pipeline mesh: the servable .npz
     stores the ordinary Network stack and the resumed chain matches the
     uninterrupted pipelined run."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
-    from tensor_ops_tpu.utils.checkpoint import load_arrays
+    from tensor_ops.models import adam
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.utils.checkpoint import load_arrays
 
     r = np.random.default_rng(5)
     X = r.uniform(0, 1, size=(128, 12))
@@ -235,7 +235,7 @@ def test_fit_pipeline_mesh_ragged_dataset(jb):
     """A dataset that doesn't divide batch_size trains fine on the
     pipeline mesh: ragged final batches are dropped (reshuffled into
     the next epoch) instead of crashing the fixed microbatch grid."""
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     r = np.random.default_rng(9)
     X = r.uniform(0, 1, size=(140, 12))       # 140 % 32 != 0
@@ -262,9 +262,9 @@ def test_fit_3d_mesh_tp_shards_ir_pipeline_body(jb):
     the single-device run at 1e-9."""
     import warnings
 
-    from tensor_ops_tpu.parallel.ir_pipeline import (partition_network,
+    from tensor_ops.parallel.ir_pipeline import (partition_network,
                                                      shard_pipelined_params)
-    from tensor_ops_tpu.parallel.pipeline import STAGE_AXIS, make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import STAGE_AXIS, make_3d_pipeline_mesh
 
     r = np.random.default_rng(11)
     X = r.uniform(0, 1, size=(64, 12))
@@ -300,7 +300,7 @@ def test_fit_3d_mesh_warns_when_body_not_shardable(jb):
     with a loud warning (never silent)."""
     import warnings
 
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     rng = Rng(jb, seed=30)
     # 15-wide body: 15 % 2 != 0 -> not tp-shardable
@@ -324,7 +324,7 @@ def test_fit_pipeline_accum_matches_plain(jb):
     """accum_steps on the pipeline mesh: accumulating 2 half-batch
     chunks equals the full-batch pipelined step at 1e-9 (the mean of
     chunk means IS the batch mean)."""
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     r = np.random.default_rng(21)
     X = r.uniform(0, 1, size=(128, 12))
@@ -345,7 +345,7 @@ def test_fit_pipeline_accum_matches_plain(jb):
 
 @multi
 def test_fit_pipeline_accum_chunk_validated(jb):
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     X, Y = np.zeros((64, 12)), np.eye(2)[np.zeros(64, int)]
     with pytest.raises(ValueError, match="accumulation chunk"):
@@ -359,8 +359,8 @@ def test_fit_pipeline_mixed_precision_and_accum_resume(jb, tmp_path):
     """The formerly-rejected combinations run on the pipeline mesh:
     bf16 mixed precision trains to finite losses, and the crash/resume
     property holds under (pipeline x accum)."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.models import adam
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     r = np.random.default_rng(23)
     X = r.uniform(0, 1, size=(128, 12))
@@ -397,7 +397,7 @@ def test_fit_pipeline_mixed_precision_and_accum_resume(jb, tmp_path):
 def test_pipeline_resume_layout_mismatch_rejected(jb, tmp_path):
     """A circular-schedule resume of a GPipe checkpoint (identical leaf
     shapes, permuted rows) must raise, not silently corrupt."""
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     r = np.random.default_rng(41)
     X = r.uniform(0, 1, size=(64, 12))
@@ -422,7 +422,7 @@ def test_pipeline_resume_tp_change_rejected(jb, tmp_path):
     Lmax) change across a resume passes the leaf-count check — the
     packed shape in the layout key must catch it with a named error
     instead of an opaque reshape failure deep in tracing."""
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     r = np.random.default_rng(71)
     X = r.uniform(0, 1, size=(64, 12))
@@ -451,7 +451,7 @@ def test_hetero_3d_mesh_warns_idle_model_axis(jb):
     test_ir_pipeline.py hetero_tp tests.)"""
     import warnings
 
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     net = gen_net(jb, 12, 2, [(9, act_logistic()), (6, act_logistic())],
                   act_softmax(), Rng(jb, seed=45))
@@ -468,8 +468,8 @@ def test_hetero_3d_mesh_warns_idle_model_axis(jb):
 
 @multi
 def test_pipeline_chunks_validated(jb):
-    from tensor_ops_tpu.ops.shapes import ShapeError
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.ops.shapes import ShapeError
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     net = gen_net(jb, 12, 2, [(16, act_logistic())] * 9, act_softmax(),
                   Rng(jb, seed=47))
@@ -491,8 +491,8 @@ def _seq_data(n_seq=32, n=6, seed=3):
 
 
 def _rnet(jb, seed=3):
-    from tensor_ops_tpu.models import act_logistic
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import act_logistic
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     return gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],
                     act_logistic(), None, Rng(jb, seed=seed))
@@ -503,7 +503,7 @@ def test_fit_sequences_mesh_matches_single_device(jb):
     """Recurrent scan-BPTT training on a (data=2, model=4) mesh: loss
     curve and final states+params equal the single-device run at 1e-9,
     and the Elman weights come back tp-sharded, not replicated."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
+    from tensor_ops.models import fit_sequences, squared_error
 
     XS, TS = _seq_data()
     loss = squared_error(1)
@@ -530,7 +530,7 @@ def test_fit_sequences_mesh_adam_resume(jb, tmp_path):
     """Optimizer + crash/resume compose with the sequence mesh: Adam
     moments inherit the param shardings and a resumed chain reproduces
     the uninterrupted run bit-exactly."""
-    from tensor_ops_tpu.models import adam, fit_sequences, squared_error
+    from tensor_ops.models import adam, fit_sequences, squared_error
 
     XS, TS = _seq_data()
     loss = squared_error(1)
@@ -557,8 +557,8 @@ def test_fit_sequences_mesh_adam_resume(jb, tmp_path):
 def test_fit_sequences_mesh_validation(jb):
     """Eager errors: non-divisible batch, stage-axis meshes (the scan is
     sequential over time — no pipeline mode), non-jax backends."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     XS, TS = _seq_data()
     loss = squared_error(1)
@@ -575,7 +575,7 @@ def test_fit_sequences_mesh_accum_and_mixed(jb):
     """The full surface composes on the sequence mesh: accum_steps
     equality at 1e-9, and mixed_precision trains with sharded bf16
     compute + full-precision masters."""
-    from tensor_ops_tpu.models import adam, fit_sequences, squared_error
+    from tensor_ops.models import adam, fit_sequences, squared_error
 
     XS, TS = _seq_data()
     loss = squared_error(1)

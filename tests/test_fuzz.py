@@ -8,9 +8,9 @@ enumerate."""
 import numpy as np
 import pytest
 
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.ops import ir
-from tensor_ops_tpu.ops.ir import TOp
+from tensor_ops import prim as P
+from tensor_ops.ops import ir
+from tensor_ops.ops.ir import TOp
 
 from helpers import check_grads_vs_jax, fd_grad
 
@@ -102,8 +102,7 @@ def test_random_graphs_parity_and_fd(seed, nb, jb):
 
     v_n, g_n = ir.value_and_grad(op, nb, xs)
     v_j, g_j = ir.value_and_grad(op, jb, tuple(jb.asarray(x) for x in xs))
-    # 1e-6: tight enough to catch real defects, loose enough for the
-    # real-TPU f64 emulation (~1e-8 relative) under TOPS_TEST_TPU=1
+    # 1e-6: tight enough to catch real defects
     assert abs(float(v_n) - float(v_j)) < 1e-6 * max(1.0, abs(float(v_n)))
     for a, b in zip(g_n, g_j):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
@@ -124,14 +123,14 @@ def test_random_recurrent_scan_fuzz(seed, nb, jb):
     through ScanOp: numpy-vs-jax parity and FD on the initial state."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models.neuralnet import (
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models.neuralnet import (
         act_logistic,
         act_relu,
         act_tanh,
     )
-    from tensor_ops_tpu.models.recurrent import RecurrentNetwork, fully_connected
-    from tensor_ops_tpu.models import squared_error
+    from tensor_ops.models.recurrent import RecurrentNetwork, fully_connected
+    from tensor_ops.models import squared_error
 
     rng_np = np.random.default_rng(seed)
     i = int(rng_np.choice(DIMS))
@@ -192,7 +191,7 @@ def test_random_parallel_config_fuzz(seed):
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
 
-    from tensor_ops_tpu.parallel.pipeline import (
+    from tensor_ops.parallel.pipeline import (
         PipelineMLP,
         circular_pipeline_forward,
         make_pipeline_mesh,

@@ -13,13 +13,13 @@ primitive"), with THREE oracles per composition:
 import numpy as np
 import pytest
 
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.ops import ir
+from tensor_ops import prim as P
+from tensor_ops.ops import ir
 
 from helpers import check_grads, check_grads_vs_jax
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 def sq(shape):

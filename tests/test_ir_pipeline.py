@@ -8,25 +8,25 @@ import pytest
 
 import jax
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     cross_entropy,
     gen_net,
     squared_error,
 )
-from tensor_ops_tpu.models.training import make_vmapped_grads
-from tensor_ops_tpu.ops.shapes import ShapeError
-from tensor_ops_tpu.parallel.ir_pipeline import (
+from tensor_ops.models.training import make_vmapped_grads
+from tensor_ops.ops.shapes import ShapeError
+from tensor_ops.parallel.ir_pipeline import (
     ir_pipeline_grads,
     ir_pipeline_train_step,
     network_segments,
     split_network,
     unchain,
 )
-from tensor_ops_tpu.parallel.pipeline import (
+from tensor_ops.parallel.pipeline import (
     make_dp_pipeline_mesh,
     make_pipeline_mesh,
 )
@@ -165,7 +165,7 @@ def _flagship(jb, seed=0):
 
 
 def test_balanced_partition_minimizes_max():
-    from tensor_ops_tpu.parallel.ir_pipeline import _balanced_partition
+    from tensor_ops.parallel.ir_pipeline import _balanced_partition
 
     assert _balanced_partition([10, 1, 1, 10], 2) == [(0, 2), (2, 4)]
     assert _balanced_partition([5, 5, 5], 3) == [(0, 1), (1, 2), (2, 3)]
@@ -174,7 +174,7 @@ def test_balanced_partition_minimizes_max():
 
 
 def test_split_network_hetero_flagship(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import split_network_hetero
+    from tensor_ops.parallel.ir_pipeline import split_network_hetero
 
     net = _flagship(jb)
     p = split_network_hetero(net, 3)
@@ -189,7 +189,7 @@ def test_split_network_hetero_flagship(jb):
 
 
 def test_partition_network_dispatch(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroPipelinedNetwork, PipelinedNetwork, partition_network)
 
     assert isinstance(partition_network(_uniform_chain(jb, n_layers=4), 4),
@@ -204,7 +204,7 @@ def test_hetero_pipeline_flagship_grads_equal_sequential(jb):
     (`/root/reference/app/MNIST.hs:89-104`) pipelines through the staged
     IR, and one pipelined SGD step lands on exactly the sequential
     staged-IR step's params (1e-9)."""
-    from tensor_ops_tpu.parallel.ir_pipeline import ir_pipeline_train_step
+    from tensor_ops.parallel.ir_pipeline import ir_pipeline_train_step
 
     net = _flagship(jb)
     loss = cross_entropy(10)
@@ -231,9 +231,9 @@ def test_hetero_fit_pipeline_flagship(jb, tmp_path):
     """fit(mesh=stage mesh) on the flagship (heterogeneous partition):
     loss curve equals single-device fit at 1e-9, checkpoint stays
     servable, crash/resume matches the uninterrupted run."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.models.trainer import fit
-    from tensor_ops_tpu.utils.checkpoint import load_arrays
+    from tensor_ops.models import adam
+    from tensor_ops.models.trainer import fit
+    from tensor_ops.utils.checkpoint import load_arrays
 
     r = np.random.default_rng(7)
     X = r.uniform(0, 1, size=(64, 784))
@@ -273,7 +273,7 @@ def test_hetero_fit_pipeline_flagship(jb, tmp_path):
 
 
 def test_tp_local_segment_pattern_match(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import (_tp_local_segment,
+    from tensor_ops.parallel.ir_pipeline import (_tp_local_segment,
                                                      network_segments)
 
     net = _uniform_chain(jb, h=8, n_layers=3)
@@ -294,8 +294,8 @@ def test_tp_local_segment_pattern_match(jb):
 def test_tp_local_segment_matches_full_rowwise(jb):
     """The local segment IS the row-slice of the full segment: applying
     it to the sliced params reproduces the matching output rows."""
-    from tensor_ops_tpu.ops import ir
-    from tensor_ops_tpu.parallel.ir_pipeline import (_tp_local_segment,
+    from tensor_ops.ops import ir
+    from tensor_ops.parallel.ir_pipeline import (_tp_local_segment,
                                                      network_segments)
 
     net = _uniform_chain(jb, h=8, n_layers=3, seed=5)
@@ -312,8 +312,8 @@ def test_tp_local_segment_matches_full_rowwise(jb):
 def test_ir_pipeline_tp_grads_equal_sequential(jb):
     """(stage=2, model=2) + dp: pipelined-and-tensor-parallel staged-IR
     gradients equal the sequential framework gradients at 1e-9."""
-    from tensor_ops_tpu.parallel.ir_pipeline import ir_pipeline_train_step
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.ir_pipeline import ir_pipeline_train_step
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     net = _uniform_chain(jb, h=8, n_layers=5, seed=9)  # 4-segment body
     loss = cross_entropy(8)
@@ -340,7 +340,7 @@ def test_ir_pipeline_tp_grads_equal_sequential(jb):
 
 
 def test_interleave_perm_roundtrip(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         split_network_circular)
 
     net = _uniform_chain(jb, h=4, n_layers=9, seed=11)  # 8-segment body
@@ -379,7 +379,7 @@ def test_ir_circular_grads_equal_sequential(jb, M):
 def test_ir_circular_with_tp(jb):
     """Circular schedule composed with tensor parallelism on a
     (stage=2, model=2) mesh (+ V=2 chunks): still == sequential."""
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     net = _uniform_chain(jb, h=8, n_layers=5, seed=17)  # 4-segment body
     loss = cross_entropy(8)
@@ -404,8 +404,8 @@ def test_fit_circular_ir_pipeline(jb, tmp_path):
     """fit(pipeline_schedule='circular'): same loss curve as the GPipe
     schedule and as single-device (identical math, different overlap),
     with checkpoint/resume intact."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.models.trainer import fit
+    from tensor_ops.models import adam
+    from tensor_ops.models.trainer import fit
 
     r = np.random.default_rng(19)
     X = r.uniform(0, 1, size=(64, 12))
@@ -461,7 +461,7 @@ def _pyramid(jb, seed=0):
 
 
 def test_split_hetero_tp_roundtrip(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import split_network_hetero_tp
+    from tensor_ops.parallel.ir_pipeline import split_network_hetero_tp
 
     net = _pyramid(jb)
     p = split_network_hetero_tp(net, 2, 2)
@@ -495,8 +495,8 @@ def test_split_hetero_tp_roundtrip_fuzz(jb):
     packed per-shard row-slices must reassemble the exact Network
     stack; the tp-local segments must be width-consistent with their
     suffixes.  Pure structure — no mesh required."""
-    from tensor_ops_tpu.models import act_relu, act_tanh
-    from tensor_ops_tpu.parallel.ir_pipeline import split_network_hetero_tp
+    from tensor_ops.models import act_relu, act_tanh
+    from tensor_ops.parallel.ir_pipeline import split_network_hetero_tp
 
     r = np.random.default_rng(0)
     acts = [act_logistic, act_relu, act_tanh]
@@ -529,11 +529,11 @@ def test_hetero_tp_grads_equal_sequential(jb):
     """(stage=2, model=2) + dp on the all-elementwise pyramid: the
     tp-sharded heterogeneous pipeline == sequential at 1e-9, with the
     packed params genuinely sharded over BOTH axes."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroTpPipelinedNetwork, ir_pipeline_train_step, partition_network,
         shard_pipelined_params)
-    from tensor_ops_tpu.parallel.pipeline import STAGE_AXIS, make_3d_pipeline_mesh
-    from tensor_ops_tpu.parallel.mesh import MODEL_AXIS
+    from tensor_ops.parallel.pipeline import STAGE_AXIS, make_3d_pipeline_mesh
+    from tensor_ops.parallel.mesh import MODEL_AXIS
 
     net = _pyramid(jb, seed=3)
     loss = squared_error(16)
@@ -566,9 +566,9 @@ def test_hetero_tp_mixed_precision_and_accum(jb, tmp_path):
     bf16 mixed precision trains to finite losses on the (2,2,2) mesh,
     and crash/resume under (hetero-tp x accum) equals the straight
     run."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.models.trainer import fit
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.models import adam
+    from tensor_ops.models.trainer import fit
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     r = np.random.default_rng(31)
     X = r.uniform(0, 1, size=(64, 16))
@@ -604,10 +604,10 @@ def test_hetero_tp_softmax_grads_equal_sequential(jb):
     (16->8->4, logistic hidden, softmax head, cross-entropy): the
     sharded-softmax decomposition (tp-local affine+exp, replicated
     normalization after the gather) == sequential at 1e-9."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroTpPipelinedNetwork, partition_network,
         shard_pipelined_params)
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     rng = Rng(jb, seed=11)
     net = gen_net(jb, 16, 4, [(8, act_logistic())], act_softmax(), rng)
@@ -639,9 +639,9 @@ def test_hetero_tp_fit(jb, tmp_path):
     loss curve == single-device at 1e-9, checkpoint/resume intact."""
     import warnings
 
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.models.trainer import fit
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.models import adam
+    from tensor_ops.models.trainer import fit
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     r = np.random.default_rng(5)
     X = r.uniform(0, 1, size=(64, 16))
@@ -684,7 +684,7 @@ def test_hetero_tp_fit(jb, tmp_path):
 def test_describe_partition(jb):
     """describe_partition renders every partition kind with stage
     loads, widths, and the balance ratio."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         describe_partition, split_network, split_network_circular,
         split_network_hetero, split_network_hetero_tp)
 
@@ -726,7 +726,7 @@ def _deep_pyramid(jb, seed=0):
 
 
 def test_split_hetero_circular_roundtrip(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroCircularPipelinedNetwork, partition_network_circular,
         split_network_hetero_circular)
 
@@ -742,7 +742,7 @@ def test_split_hetero_circular_roundtrip(jb):
     assert isinstance(partition_network_circular(net, 4, 2),
                       HeteroCircularPipelinedNetwork)
     # ... and keeps the uniform interleaved cut for uniform ones
-    from tensor_ops_tpu.parallel.ir_pipeline import CircularPipelinedNetwork
+    from tensor_ops.parallel.ir_pipeline import CircularPipelinedNetwork
 
     assert isinstance(
         partition_network_circular(_uniform_chain(jb, h=4, n_layers=9), 4, 2),
@@ -755,7 +755,7 @@ def test_hetero_circular_grads_equal_sequential(jb, M):
     """Hetero circular schedule (S=4, V=2 chunks/device; M == S and the
     M > S FIFO case): gradients == sequential transposition AD at
     1e-9 on a varied-width pyramid the uniform split rejects."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroCircularPipelinedNetwork)
 
     net = _deep_pyramid(jb, seed=23)
@@ -782,9 +782,9 @@ def test_fit_hetero_circular_pipeline(jb, tmp_path):
     """fit(pipeline_schedule='circular') on a varied-width pyramid
     (hetero circular partition) on a dp x pp mesh: same loss curve as
     single-device, checkpoint/resume exact."""
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.models.trainer import fit
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.models import adam
+    from tensor_ops.models.trainer import fit
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     r = np.random.default_rng(29)
     X = r.uniform(0, 1, size=(64, 24))
@@ -839,8 +839,8 @@ def test_hetero_circular_warns_idle_model_axis(jb):
     loudly, never silently."""
     import warnings
 
-    from tensor_ops_tpu.models.trainer import fit
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.models.trainer import fit
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     net = _odd_pyramid(jb, seed=37)
     r = np.random.default_rng(38)
@@ -856,7 +856,7 @@ def test_hetero_circular_warns_idle_model_axis(jb):
 
 
 def test_describe_hetero_circular(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         describe_partition, split_network_hetero_circular)
 
     s = describe_partition(
@@ -874,11 +874,11 @@ def test_split_hetero_tp_circular_roundtrip(jb):
     """The (S, V, tp, Lmax) packed per-shard chunk rows reassemble the
     exact Network stack; the dispatcher picks the tp cut only when a
     model axis exists AND every width divides it."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         CircularPipelinedNetwork, HeteroCircularPipelinedNetwork,
         HeteroTpCircularPipelinedNetwork, partition_network_circular,
         split_network_hetero_tp_circular)
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     net = _deep_pyramid(jb)
     p = split_network_hetero_tp_circular(net, 2, 2, 2)
@@ -925,8 +925,8 @@ def test_split_hetero_tp_circular_roundtrip_fuzz(jb):
     head) split at every feasible (S, V, tp): the packed (S, V, tp,
     Lmax) per-shard chunk rows must reassemble the exact Network
     stack.  Pure structure — no mesh required."""
-    from tensor_ops_tpu.models import act_relu, act_tanh
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.models import act_relu, act_tanh
+    from tensor_ops.parallel.ir_pipeline import (
         split_network_hetero_tp_circular)
 
     r = np.random.default_rng(7)
@@ -962,11 +962,11 @@ def test_hetero_tp_circular_grads_equal_sequential(jb, M):
     """Hetero circular x tp on the (2,2,2) dp x pp x tp mesh (M == S
     and the M > S FIFO case): gradients == sequential transposition AD
     at 1e-9, packed params genuinely sharded over (stage, model)."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroTpCircularPipelinedNetwork, partition_network_circular,
         shard_pipelined_params)
-    from tensor_ops_tpu.parallel.mesh import MODEL_AXIS
-    from tensor_ops_tpu.parallel.pipeline import (STAGE_AXIS,
+    from tensor_ops.parallel.mesh import MODEL_AXIS
+    from tensor_ops.parallel.pipeline import (STAGE_AXIS,
                                                   make_3d_pipeline_mesh)
 
     net = _deep_pyramid(jb, seed=41)
@@ -1001,10 +1001,10 @@ def test_hetero_tp_circular_softmax_grads_equal_sequential(jb):
     """Flagship-shaped softmax chain under the interleaved tp schedule:
     the sharded-softmax decomposition (tp-local affine + exp,
     replicated normalization after the gather) == sequential at 1e-9."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         HeteroTpCircularPipelinedNetwork, partition_network_circular,
         shard_pipelined_params)
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     rng = Rng(jb, seed=43)
     net = gen_net(jb, 16, 4, [(8, act_logistic())] * 3, act_softmax(),
@@ -1039,9 +1039,9 @@ def test_fit_hetero_tp_circular(jb, tmp_path):
     loss curve == single-device at 1e-9, checkpoint/resume exact."""
     import warnings
 
-    from tensor_ops_tpu.models import adam
-    from tensor_ops_tpu.models.trainer import fit
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.models import adam
+    from tensor_ops.models.trainer import fit
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     r = np.random.default_rng(45)
     X = r.uniform(0, 1, size=(64, 24))
@@ -1083,7 +1083,7 @@ def test_fit_hetero_tp_circular(jb, tmp_path):
 
 
 def test_describe_hetero_tp_circular(jb):
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         describe_partition, split_network_hetero_tp_circular)
 
     s = describe_partition(
@@ -1096,7 +1096,7 @@ def test_describe_circular_balance_is_per_device(jb):
     """The balance line aggregates a device's V chunks, not raw chunk
     values: a pyramid whose chunk FLOPs are skewed across slots but
     even across devices must report the PER-DEVICE ratio."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         _op_flops, describe_partition, split_network_hetero_circular)
 
     p = split_network_hetero_circular(_deep_pyramid(jb), 2, 2)
@@ -1112,7 +1112,7 @@ def test_circular_pnet_stage_mismatch_rejected(jb):
     """A prebuilt partition for the wrong stage count must error, not
     silently train a different network (shard_map would split the
     packed rows across whatever stages exist)."""
-    from tensor_ops_tpu.parallel.ir_pipeline import (
+    from tensor_ops.parallel.ir_pipeline import (
         make_ir_pipeline_loss, split_network_hetero,
         split_network_hetero_circular)
 
@@ -1128,7 +1128,7 @@ def test_circular_pnet_stage_mismatch_rejected(jb):
                               pnet=h4)
     uc = gen_net(jb, 8, 8, [(8, act_logistic())] * 7, act_logistic(),
                  Rng(jb, seed=1))
-    from tensor_ops_tpu.parallel.ir_pipeline import split_network_circular
+    from tensor_ops.parallel.ir_pipeline import split_network_circular
 
     c4 = split_network_circular(uc, 4, 2)
     with pytest.raises(ValueError, match="built for 4 stages"):

@@ -7,10 +7,10 @@ reference's compile-time guarantees (SURVEY.md §4: composition laws,
 import numpy as np
 import pytest
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.ops import ir
-from tensor_ops_tpu.ops.shapes import ShapeError
+import tensor_ops as T
+from tensor_ops import prim as P
+from tensor_ops.ops import ir
+from tensor_ops.ops.shapes import ShapeError
 
 from helpers import check_grads
 
@@ -143,7 +143,7 @@ def test_fanout_requires_same_inputs():
 
 def test_mapped_op_multi_output(nb, jb):
     """MappedOp over an op with several outputs (duplicate)."""
-    from tensor_ops_tpu.ops.loops import MappedOp
+    from tensor_ops.ops.loops import MappedOp
 
     m = MappedOp(P.duplicate((3,)), 4)
     xsb = r(4, 3)
@@ -193,7 +193,7 @@ def test_remat_gradients_identical(nb):
     assert np.isclose(v1, v2)
     np.testing.assert_allclose(g1[0], g2[0], atol=1e-12)
     # the remat tape is exactly the input tuple
-    from tensor_ops_tpu.ops.loops import Remat
+    from tensor_ops.ops.loops import Remat
 
     node = Remat(chain)
     _, tape = node.apply_tape(nb, (x,))
@@ -213,9 +213,9 @@ def test_runtime_shape_validation(nb):
 def test_describe_and_graph_stats(nb):
     """ops.describe renders every node with its stack signature;
     graph_stats counts nodes/depth/leaf types; max_depth truncates."""
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, gen_net
-    from tensor_ops_tpu.ops import describe, graph_stats
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, gen_net
+    from tensor_ops.ops import describe, graph_stats
 
     net = gen_net(nb, 4, 2, [(3, act_logistic())], act_softmax(),
                   Rng(nb, seed=0))
@@ -232,8 +232,8 @@ def test_describe_and_graph_stats(nb):
     assert "[4]" in s["signature"]
 
     # scan/mapped nodes expose their inner step too
-    from tensor_ops_tpu.ops.loops import ScanOp
-    from tensor_ops_tpu.ops import prim as P
+    from tensor_ops.ops.loops import ScanOp
+    from tensor_ops.ops import prim as P
 
     scan = ScanOp(P.add((3,)).first(rest=[(3,)]), n=4, n_state=1)
     assert "step: First" in describe(scan) and "SumOp" in describe(scan)
@@ -243,8 +243,8 @@ def test_describe_handles_deep_chains(nb):
     """Regression (review): introspection is iterative — a then-chain
     far beyond Python's recursion depth renders and counts fine, and
     max_depth truncation doesn't recurse into the suppressed subtree."""
-    from tensor_ops_tpu.ops import describe, graph_stats
-    from tensor_ops_tpu.ops import prim as P
+    from tensor_ops.ops import describe, graph_stats
+    from tensor_ops.ops import prim as P
 
     g = P.map_op((4,), lambda x: x, name="id0")
     for i in range(1200):

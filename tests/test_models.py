@@ -3,17 +3,17 @@ convergence (the dots integration gate, SURVEY.md §7.2 step 5)."""
 
 import numpy as np
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     cross_entropy,
     gen_net,
     squared_error,
 )
-from tensor_ops_tpu.models.neuralnet import logistic, softmax
-from tensor_ops_tpu.ops import ir
+from tensor_ops.models.neuralnet import logistic, softmax
+from tensor_ops.ops import ir
 
 from helpers import check_grads
 
@@ -28,7 +28,7 @@ def test_softmax_values(nb):
 def test_softmax_grad(nb):
     v = np.random.default_rng(0).normal(size=4)
     t = np.array([0.0, 1.0, 0.0, 0.0])
-    from tensor_ops_tpu import prim as P
+    from tensor_ops import prim as P
 
     op = P.first(softmax(4), rest=[(4,)]) >> cross_entropy(4)
     check_grads(op, nb, (v, t))
@@ -89,7 +89,7 @@ def test_induce_moves_input_toward_target(nb):
 
 def test_network_compose_and_maps(nb):
     rng = Rng(nb, seed=1)
-    from tensor_ops_tpu.models.feedforward import ff_layer
+    from tensor_ops.models.feedforward import ff_layer
 
     a = ff_layer(nb, 2, 3, rng)
     b = ff_layer(nb, 3, 1, rng)
@@ -106,8 +106,8 @@ def test_network_compose_and_maps(nb):
 def test_train_fold_matches_per_sample_loop(nb, jb):
     """Scanned per-sample SGD == the sequential fold (reference trainAll
     semantics, MNIST.hs:390-396)."""
-    from tensor_ops_tpu.models.feedforward import Network
-    from tensor_ops_tpu.models.training import train_fold
+    from tensor_ops.models.feedforward import Network
+    from tensor_ops.models.training import train_fold
 
     rng = Rng(nb, seed=11)
     net = gen_net(nb, 3, 2, [(4, act_logistic())], act_logistic(), rng)

@@ -5,8 +5,8 @@ native-backed backend running a full training step."""
 import numpy as np
 import pytest
 
-from tensor_ops_tpu.backend.numpy_backend import NumpyBackend
-from tensor_ops_tpu.utils.native import (
+from tensor_ops.backend.numpy_backend import NumpyBackend
+from tensor_ops.utils.native import (
     NativeLoader,
     get_lib,
     native_gmul,
@@ -16,7 +16,7 @@ from tensor_ops_tpu.utils.native import (
 needs_native = pytest.mark.skipif(get_lib() is None, reason="no native toolchain")
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 @needs_native
@@ -44,8 +44,8 @@ def test_native_transpose_matches_numpy(nb):
 
 @needs_native
 def test_native_backend_training_parity():
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, gen_net, squared_error
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, gen_net, squared_error
 
     pure = NumpyBackend()
     nat = NumpyBackend(use_native=True)
@@ -85,7 +85,7 @@ def test_loader_reshuffles_across_epochs():
 
 
 def test_loader_python_fallback_semantics(monkeypatch):
-    import tensor_ops_tpu.utils.native as nat
+    import tensor_ops.utils.native as nat
 
     monkeypatch.setattr(nat, "get_lib", lambda: None)
     X = np.arange(12, dtype=np.float32).reshape(6, 2)

@@ -1,7 +1,7 @@
 """Optimizer-state HOST OFFLOAD (``fit(offload_opt_state=True)``): the
 moments live in pinned host DRAM between steps — the ZeRO-Offload
-placement done the TPU-native way (``jax.memory.Space`` transfers inside
-the jitted step, so XLA schedules the HBM<->host DMAs itself).  Steady-
+placement done with ``jax.memory.Space`` transfers inside the jitted
+step, so XLA schedules the device<->host copies itself.  Steady-
 state optimizer HBM is ZERO; the update math must be BIT-identical to
 the on-device run (placement changes nothing numerically), checkpoints
 must resume exactly, and the knob must compose with the whole ZeRO
@@ -11,10 +11,9 @@ surface (SURVEY.md §2.5's memory ladder).
 
 On the CPU test backend host and device memory are the same DRAM, so
 these tests pin the SEMANTICS (equality, resume, composition, errors);
-the pinned-host residency itself is asserted only where a real TPU is
-attached (``TOPS_TEST_TPU=1``)."""
+the pinned-host residency itself is asserted by the ``gpu``-marked test,
+which runs on the card."""
 
-import os
 import warnings
 
 import numpy as np
@@ -22,8 +21,8 @@ import pytest
 
 import jax
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -33,17 +32,11 @@ from tensor_ops_tpu.models import (
     sgd,
     squared_error,
 )
-from tensor_ops_tpu.models.trainer import fit, fit_sequences
-from tensor_ops_tpu.parallel.mesh import make_mesh
+from tensor_ops.models.trainer import fit, fit_sequences
+from tensor_ops.parallel.mesh import make_mesh
 
 multi = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 devices (see conftest note)"
-)
-on_tpu = pytest.mark.skipif(
-    os.environ.get("TOPS_TEST_TPU") != "1"
-    or jax.default_backend() == "cpu",
-    reason="pinned-host residency is observable only on real TPU "
-           "hardware (CPU canonicalizes Space.Host to its one memory)",
 )
 
 
@@ -132,7 +125,7 @@ def test_offload_pipeline_mesh(jb):
     the packed stage rows live on the host between steps)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from tensor_ops_tpu.parallel.pipeline import make_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_pipeline_mesh
 
     h = 16
     r = np.random.default_rng(6)
@@ -156,7 +149,7 @@ def test_offload_pipeline_mesh(jb):
 def test_offload_sequences_bit_identical(jb):
     """fit_sequences(offload_opt_state=True): the recurrent family gets
     the same knob; bit-equal to the on-device run."""
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     def mknet():
         return gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],
@@ -185,12 +178,12 @@ def test_offload_validation(jb, nb):
     X, Y = _data(n=32)
     loss = cross_entropy(4)
     with pytest.raises(ValueError, match="offload_opt_state"):
-        from tensor_ops_tpu.models.feedforward import gen_net as _gn  # noqa: F401
+        from tensor_ops.models.feedforward import gen_net as _gn  # noqa: F401
 
         fit(_net(nb), loss, nb, X, Y, offload_opt_state=True,
             verbose=False)
 
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     rnet = gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],
                     act_logistic(), None, Rng(jb, seed=1))
@@ -212,7 +205,7 @@ def test_offload_memory_report_rows(jb):
     leave the per-device HBM account (0 bytes resident) and appear in
     an explicit host row — the operator's pre-flight numbers stay
     honest."""
-    from tensor_ops_tpu.utils.profiling import training_memory_report
+    from tensor_ops.utils.profiling import training_memory_report
 
     net = _net(jb)
     base = training_memory_report(net, optimizer=adam())["per_device"]
@@ -232,12 +225,12 @@ def test_offload_memory_report_rows(jb):
         assert 0 < z1["optimizer_host_bytes"] < off["optimizer_host_bytes"]
 
 
-@on_tpu
-def test_offload_residency_on_tpu(jb):
-    """On real TPU hardware the moments actually sit in pinned_host
-    between steps (fit returns converted artifacts, so assert at the
-    make_opt_step level)."""
-    from tensor_ops_tpu.models.trainer import make_opt_step
+@pytest.mark.gpu
+def test_offload_residency_on_gpu(jb):
+    """On the card the moments actually sit in pinned_host between steps
+    (the CPU canonicalizes Space.Host to its one memory; fit returns
+    converted artifacts, so assert at the make_opt_step level)."""
+    from tensor_ops.models.trainer import make_opt_step
 
     X, Y = _data(n=32)
     net = _net(jb, seed=11)

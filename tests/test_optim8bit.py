@@ -9,8 +9,8 @@ import pytest
 
 import jax
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -18,7 +18,7 @@ from tensor_ops_tpu.models import (
     cross_entropy,
     gen_net,
 )
-from tensor_ops_tpu.models.trainer import fit
+from tensor_ops.models.trainer import fit
 
 multi = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 devices (see conftest note)"
@@ -113,8 +113,8 @@ def test_adam8bit_mesh_and_zero1(jb):
     """adam8bit on a dp x tp mesh with shard_opt_state=True: the int8
     code blocks shard over data (zero1 extends their inherited spec on
     the block axis) and training stays finite and learning."""
-    from tensor_ops_tpu.models import squared_error
-    from tensor_ops_tpu.parallel.mesh import (DATA_AXIS, make_mesh,
+    from tensor_ops.models import squared_error
+    from tensor_ops.parallel.mesh import (DATA_AXIS, make_mesh,
                                               zero1_place)
 
     mesh = make_mesh(8, shape=(4, 2))
@@ -142,8 +142,8 @@ def test_adam8bit_mesh_and_zero1(jb):
 def test_adam8bit_memory_accounting(jb):
     """training_memory_report and plan_meshes charge adam8bit ~1 byte
     per code element + per-block scales instead of full-dtype moments."""
-    from tensor_ops_tpu.models.optim import moment_footprint
-    from tensor_ops_tpu.utils.profiling import training_memory_report
+    from tensor_ops.models.optim import moment_footprint
+    from tensor_ops.utils.profiling import training_memory_report
 
     net = _net(jb)
     bytes_per = np.dtype(net.params[0].dtype).itemsize
@@ -168,7 +168,7 @@ def test_adam8bit_memory_accounting(jb):
     assert (r256["per_device"]["optimizer_bytes"]
             > rf["per_device"]["optimizer_bytes"])  # padding, honestly
 
-    from tensor_ops_tpu.parallel.plan import plan_meshes
+    from tensor_ops.parallel.plan import plan_meshes
 
     p8 = plan_meshes(net, 4, batch_size=64, optimizer=adam8bit())
     pf = plan_meshes(net, 4, batch_size=64, optimizer=adam())
@@ -188,7 +188,7 @@ def test_adam8bit_sr_unbiased_and_rescues_stalled_moments():
     it in expectation.  Long-horizon drift: 10k steps on a separable
     quadratic, SR's loss must track f32 adam within a bound while
     nearest-rounding stalls the small coordinates."""
-    from tensor_ops_tpu.models.optim import adam as _adam
+    from tensor_ops.models.optim import adam as _adam
 
     # one block of 256: element 0 carries a huge gradient, the rest tiny
     n = 256
@@ -227,7 +227,7 @@ def test_adam8bit_sr_resume_bit_exact_and_footprint(jb, tmp_path):
     """SR noise is counter-based (step, leaf) — crash/resume chains are
     bit-identical; the state layout and moment_footprint are unchanged;
     the jax (jitted, traced-t) path trains finitely."""
-    from tensor_ops_tpu.models.optim import moment_footprint
+    from tensor_ops.models.optim import moment_footprint
 
     opt = adam8bit(stochastic_rounding=True)
     assert (moment_footprint(opt, 8)
@@ -263,8 +263,8 @@ def test_adam8bit_zero23_quantization_amplifies_reduction_order(jb):
     replicated) stays bit-exact; full-precision optimizers stay at
     1e-9 under every stage.  This is a quantization property, not a
     sharding bug — the test pins the honest tolerance band."""
-    from tensor_ops_tpu.models import cross_entropy
-    from tensor_ops_tpu.parallel.mesh import make_mesh
+    from tensor_ops.models import cross_entropy
+    from tensor_ops.parallel.mesh import make_mesh
 
     mesh = make_mesh(8, shape=(8, 1))
     r = np.random.default_rng(7)
@@ -303,8 +303,8 @@ def test_adam8bit_exact_reduction_matches_replicated(jb):
     the opt-in exactness mode for the ~1e-3 default band pinned by
     the test above.  Costs all-reduce bytes (2x) — the default stays
     fast."""
-    from tensor_ops_tpu.models import cross_entropy
-    from tensor_ops_tpu.parallel.mesh import make_mesh
+    from tensor_ops.models import cross_entropy
+    from tensor_ops.parallel.mesh import make_mesh
 
     mesh = make_mesh(8, shape=(4, 2))  # dp x tp, per the VERDICT ask
     r = np.random.default_rng(7)

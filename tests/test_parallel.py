@@ -7,12 +7,12 @@ import pytest
 
 import jax
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, act_softmax, cross_entropy, gen_net
-from tensor_ops_tpu.models.feedforward import Network
-from tensor_ops_tpu.models.training import train_minibatch
-from tensor_ops_tpu.parallel.mesh import (
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, act_softmax, cross_entropy, gen_net
+from tensor_ops.models.feedforward import Network
+from tensor_ops.models.training import train_minibatch
+from tensor_ops.parallel.mesh import (
     make_mesh,
     param_specs,
     shard_network,
@@ -66,7 +66,7 @@ def test_sharded_forward_matches_single(jb):
     snet = shard_network(net, mesh)
     fwd = sharded_forward(snet, jb, mesh)
     got = np.asarray(fwd(xb, *snet.params))
-    from tensor_ops_tpu.models.training import batched_run
+    from tensor_ops.models.training import batched_run
 
     want = np.asarray(batched_run(net, jb)(xb, *net.params))
     np.testing.assert_allclose(got, want, atol=1e-9)
@@ -98,7 +98,7 @@ def test_dryrun_multichip_entrypoint():
 def test_init_distributed_single_process_noop():
     """Single-process (no coordinator configured): init is a no-op that
     still reports the process/device topology."""
-    from tensor_ops_tpu.parallel.distributed import init_distributed
+    from tensor_ops.parallel.distributed import init_distributed
 
     info = init_distributed()
     assert info["initialized"] is False
@@ -110,7 +110,7 @@ def test_init_distributed_env_resolution(monkeypatch):
     """TOPS_* env vars are picked up; with a bogus coordinator the call
     must at least ATTEMPT multi-process init (we assert it reaches
     jax.distributed.initialize with the resolved arguments)."""
-    import tensor_ops_tpu.parallel.distributed as D
+    import tensor_ops.parallel.distributed as D
 
     seen = {}
 
@@ -138,11 +138,11 @@ def test_shard_fused_tensor_parallel_serving(jb):
     import jax
     from jax.sharding import PartitionSpec as PSpec
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, gen_net
-    from tensor_ops_tpu.models.fast import FusedMLP
-    from tensor_ops_tpu.models.serve import Predictor
-    from tensor_ops_tpu.parallel.mesh import (MODEL_AXIS, make_mesh,
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, gen_net
+    from tensor_ops.models.fast import FusedMLP
+    from tensor_ops.models.serve import Predictor
+    from tensor_ops.parallel.mesh import (MODEL_AXIS, make_mesh,
                                               shard_fused)
 
     if len(jax.devices()) < 8:
@@ -160,14 +160,11 @@ def test_shard_fused_tensor_parallel_serving(jb):
 
     x = np.random.default_rng(3).uniform(0, 1, size=(8, 16)) \
         .astype(np.float32)
-    ref = np.asarray(fm.run_xla(x))
-    got = np.asarray(sfm.run_xla(x))
+    ref = np.asarray(fm.run(x))
+    got = np.asarray(sfm.run(x))
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
-    # the Predictor detects sharded weights and pins itself to the XLA
-    # path even below xla_threshold (the pallas kernels would silently
-    # all-gather the full weights per device)
+    # the Predictor serves the sharded weights as they are placed
     p = Predictor(sfm, buckets=(8,))
-    assert p._sharded
     np.testing.assert_allclose(np.asarray(p.predict(x)), ref, atol=1e-6)
-    assert not Predictor(fm, buckets=(8,))._sharded
+    assert p.model.weights[0].sharding.spec == PSpec(MODEL_AXIS, None)

@@ -8,7 +8,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tensor_ops_tpu.parallel.pipeline import (
+from tensor_ops.parallel.pipeline import (
     PipelineMLP,
     make_pipeline_mesh,
     pipeline_forward,
@@ -98,7 +98,7 @@ def test_pipeline_grad_matches_sequential_grad():
 def test_dp_pipeline_combined():
     """2D (data=2, stage=4) mesh: dp x pp in one training step, same
     numbers as the sequential chain."""
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     mesh = make_dp_pipeline_mesh(2, 4)
     model = PipelineMLP.init(4, 8, 3, n_stages=4, layers_per_stage=1,
@@ -128,7 +128,7 @@ def test_dp_pipeline_combined():
 def test_3d_dp_pp_tp_combined():
     """3D (data=2, stage=2, model=2) mesh: dp x pp x tp in one training
     step — forward and gradients exactly equal the sequential chain."""
-    from tensor_ops_tpu.parallel.pipeline import make_3d_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_3d_pipeline_mesh
 
     mesh = make_3d_pipeline_mesh(2, 2, 2)
     model = PipelineMLP.init(4, 8, 3, n_stages=2, layers_per_stage=2,
@@ -158,7 +158,7 @@ def test_3d_dp_pp_tp_combined():
 def test_circular_schedule_matches_sequential():
     """Circular (interleaved) pipeline: 8 global stages on 4 devices
     (V=2) computes exactly the sequential chain, forward and gradients."""
-    from tensor_ops_tpu.parallel.pipeline import (
+    from tensor_ops.parallel.pipeline import (
         circular_pipeline_forward,
         circular_pipeline_train_step,
         shard_circular_model,
@@ -185,7 +185,7 @@ def test_circular_schedule_matches_sequential():
 
     grads = jax.grad(seq_loss)(model.params())
     # compare on the permuted layout: permute the sequential grads too
-    from tensor_ops_tpu.parallel.pipeline import _interleave_chunks
+    from tensor_ops.parallel.pipeline import _interleave_chunks
 
     want_ws = np.asarray(model.stage_ws) - np.asarray(grads[2])
     want_bs = np.asarray(model.stage_bs) - np.asarray(grads[3])
@@ -208,7 +208,7 @@ def test_circular_schedule_with_tp_3d_mesh():
     model=2) mesh: 4 global chunks on 2 stage devices (V=2), each chunk's
     layers row-sharded over the model axis — forward and gradients equal
     the sequential chain (closes the round-1 NotImplementedError)."""
-    from tensor_ops_tpu.parallel.pipeline import (
+    from tensor_ops.parallel.pipeline import (
         _interleave_chunks,
         circular_pipeline_forward,
         circular_pipeline_train_step,
@@ -255,7 +255,7 @@ def test_circular_schedule_microbatch_fifo():
     """M > S: the wrapped activation waits M-S ticks in the ring-buffer
     FIFO; forward and gradients still exactly equal the sequential
     chain (8 microbatches on 4 stage devices, V=2 -> FIFO depth 4)."""
-    from tensor_ops_tpu.parallel.pipeline import (
+    from tensor_ops.parallel.pipeline import (
         _interleave_chunks,
         circular_pipeline_forward,
         circular_pipeline_train_step,
@@ -299,7 +299,7 @@ def test_circular_schedule_microbatch_fifo():
 
 @multi
 def test_circular_schedule_guards():
-    from tensor_ops_tpu.parallel.pipeline import (
+    from tensor_ops.parallel.pipeline import (
         circular_pipeline_train_step,
         shard_circular_model,
     )

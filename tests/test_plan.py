@@ -5,14 +5,14 @@ configs fit would reject, and flag (never hide) idle axes."""
 import numpy as np
 import pytest
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
     gen_net,
 )
-from tensor_ops_tpu.parallel.plan import describe_plans, plan_meshes
+from tensor_ops.parallel.plan import describe_plans, plan_meshes
 
 
 def _flagship(jb):

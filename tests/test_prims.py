@@ -5,13 +5,13 @@ exact ``(ms++os) x (Reverse os++ns) -> (ms++ns)`` semantics)."""
 import numpy as np
 import pytest
 
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.ops import ir
+from tensor_ops import prim as P
+from tensor_ops.ops import ir
 
 from helpers import loop_gmul
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 GMUL_CASES = [

@@ -12,14 +12,14 @@ import pytest
 
 import jax
 
-from tensor_ops_tpu.backend.base import (
+from tensor_ops.backend.base import (
     beta,
     exponential,
     gamma,
     normal,
     uniform,
 )
-from tensor_ops_tpu.ops.shapes import ShapeError
+from tensor_ops.ops.shapes import ShapeError
 
 
 # -- ix_rows (Types.hs:100-106) ------------------------------------------
@@ -201,7 +201,7 @@ def _laplace_icdf():
 
 
 def test_gen_rand_custom_icdf_moments_numpy(nb):
-    from tensor_ops_tpu.backend.base import custom
+    from tensor_ops.backend.base import custom
 
     lap = custom(icdf=_laplace_icdf(), name="laplace")
     out = np.asarray(nb.gen_rand(lap, np.random.default_rng(7), (N,)))
@@ -212,7 +212,7 @@ def test_gen_rand_custom_icdf_moments_numpy(nb):
 
 
 def test_gen_rand_custom_icdf_moments_jax(jb):
-    from tensor_ops_tpu.backend.base import custom
+    from tensor_ops.backend.base import custom
 
     lap = custom(icdf=_laplace_icdf(), name="laplace")
     out = np.asarray(jb.gen_rand(lap, jax.random.PRNGKey(7), (N,)))
@@ -225,7 +225,7 @@ def test_gen_rand_custom_icdf_moments_jax(jb):
 def test_gen_rand_custom_native_sampler_overrides_icdf(jb, nb):
     """A per-backend native sampler wins over the icdf on its backend;
     the other backend falls back to the icdf."""
-    from tensor_ops_tpu.backend.base import custom
+    from tensor_ops.backend.base import custom
 
     def jax_sampler(key, shape):
         return jax.random.laplace(key, shape, dtype=jb.dtype)
@@ -246,8 +246,8 @@ def test_gen_rand_custom_native_sampler_overrides_icdf(jb, nb):
 def test_gen_rand_custom_through_rng_draw(backends):
     """Rng.draw accepts a custom distribution on both backends (the
     user-facing path gen_net etc. thread through)."""
-    from tensor_ops_tpu.backend.base import custom
-    from tensor_ops_tpu.backend.rng import Rng
+    from tensor_ops.backend.base import custom
+    from tensor_ops.backend.rng import Rng
 
     lap = custom(icdf=_laplace_icdf(), name="laplace")
     for be in backends:
@@ -257,7 +257,7 @@ def test_gen_rand_custom_through_rng_draw(backends):
 
 
 def test_gen_rand_custom_requires_a_spec():
-    from tensor_ops_tpu.backend.base import custom
+    from tensor_ops.backend.base import custom
 
     with pytest.raises(ValueError, match="inverse CDF"):
         custom()

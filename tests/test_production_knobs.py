@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -16,7 +16,7 @@ from tensor_ops_tpu.models import (
     cross_entropy,
     gen_net,
 )
-from tensor_ops_tpu.models.trainer import fit, fit_sequences
+from tensor_ops.models.trainer import fit, fit_sequences
 
 
 def _task(n=256, seed=0):
@@ -83,8 +83,8 @@ def test_ema_matches_manual_recurrence(jb):
     assert res.ema_net is not None
 
     # replay the identical run step by step, folding the EMA by hand
-    from tensor_ops_tpu.models.trainer import make_opt_step
-    from tensor_ops_tpu.utils.native import NativeLoader
+    from tensor_ops.models.trainer import make_opt_step
+    from tensor_ops.utils.native import NativeLoader
 
     net = _net(jb, seed=2)
     opt = adam()
@@ -110,7 +110,7 @@ def test_ema_resume_exact(jb, tmp_path):
     """A crash/resume chain reproduces the uninterrupted EMA exactly.
     The EMA lives INSIDE the .state file — atomic with the params it
     averages, so a crash can never tear the pair."""
-    from tensor_ops_tpu.utils.checkpoint import load_train_state
+    from tensor_ops.utils.checkpoint import load_train_state
 
     X, Y, _ = _task(n=128)
     ck = str(tmp_path / "ema.npz")
@@ -161,8 +161,8 @@ def test_ema_sequences(jb):
     waves = np.sin(2 * np.pi * t[None, :]
                    + r.uniform(0, np.pi, size=(32, 1)))
     XS, TS = waves[:, :-1, None], waves[:, 1:, None]
-    from tensor_ops_tpu.models import squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     net = gen_rnet(jb, 1, 1, [(6, act_logistic(), act_logistic())],
                    act_logistic(), None, Rng(jb, seed=5))
@@ -215,7 +215,7 @@ def test_val_loss_metric_and_early_stop(jb):
     the regression/reconstruction validation accuracy can't express —
     logs val_loss, and drives early stopping (lr=0 never improves ->
     stop after 1 + patience evaluations)."""
-    from tensor_ops_tpu.models import squared_error
+    from tensor_ops.models import squared_error
 
     r = np.random.default_rng(9)
     X = r.uniform(0, 1, size=(64, 8))
@@ -237,8 +237,8 @@ def test_val_loss_metric_and_early_stop(jb):
 
 def test_batch_loss_matches_training_loss(jb):
     """training.batch_loss == the mean of per-sample loss_value."""
-    from tensor_ops_tpu.models import squared_error
-    from tensor_ops_tpu.models.training import batch_loss
+    from tensor_ops.models import squared_error
+    from tensor_ops.models.training import batch_loss
 
     r = np.random.default_rng(11)
     X = r.uniform(0, 1, size=(8, 4))
@@ -274,7 +274,7 @@ def test_profile_dir_captures_trace(jb, tmp_path):
                verbose=False, prefetch=0, log_every=1)
     assert res2.steps == 1
     # starting a new trace would raise if the previous were left open
-    from tensor_ops_tpu.utils.profiling import device_trace
+    from tensor_ops.utils.profiling import device_trace
 
     with device_trace(str(tmp_path / "trace3")):
         pass
@@ -284,8 +284,8 @@ def test_fit_sequences_val_and_early_stop(jb):
     """fit_sequences(val=(XSv, TSv)) logs the held-out sequence loss
     and early_stop_patience halts a non-improving (lr=0-equivalent)
     run after 1 + patience evaluations — the same surface as fit."""
-    from tensor_ops_tpu.models import squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     t = np.linspace(0, 1, 10)
     r = np.random.default_rng(14)
@@ -317,7 +317,7 @@ def test_fit_sequences_val_and_early_stop(jb):
                       early_stop_patience=2, verbose=False, prefetch=0)
 
     # seq_batch_loss == the mean of per-sequence seq_loss
-    from tensor_ops_tpu.models.training import seq_batch_loss
+    from tensor_ops.models.training import seq_batch_loss
 
     n0 = net()
     got = seq_batch_loss(n0, squared_error(1), jb, XSv, TSv)
@@ -325,8 +325,8 @@ def test_fit_sequences_val_and_early_stop(jb):
         squared_error(1), jb, jb.asarray(xs), jb.asarray(ts))))
         for xs, ts in zip(XSv, TSv)])
     # 1e-6 (not 1e-9): the vmapped and per-sequence paths are different
-    # XLA programs, and the TPU's software-emulated f64 differs between
-    # them at ~1e-8 relative (TESTING.md gotchas); CPU stays ~1e-16
+    # XLA programs, and a device's f64 may differ between them at
+    # ~1e-8 relative; CPU stays ~1e-16
     assert abs(got - want) < 1e-6
 
 def test_profile_dir_rejects_numpy_backend(nb, tmp_path):

@@ -6,22 +6,22 @@ fullyConnected/compose semantics of ``Recurrent.hs``."""
 import numpy as np
 import pytest
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu import prim as P
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, squared_error
-from tensor_ops_tpu.models.recurrent import (
+import tensor_ops as T
+from tensor_ops import prim as P
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, squared_error
+from tensor_ops.models.recurrent import (
     RecurrentNetwork,
     ff_layer,
     fully_connected,
     gen_net,
     stateless,
 )
-from tensor_ops_tpu.ops import ir
-from tensor_ops_tpu.ops.loops import MappedOp, ScanOp
+from tensor_ops.ops import ir
+from tensor_ops.ops.loops import MappedOp, ScanOp
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 def make_rnn(be, i=3, o=2, seed=11):
@@ -135,7 +135,7 @@ def test_training_reduces_sequence_loss(nb):
 
 
 def test_stateless_embedding_matches_ff(nb):
-    from tensor_ops_tpu.models.feedforward import ff_layer as ffl
+    from tensor_ops.models.feedforward import ff_layer as ffl
 
     rng = Rng(nb, seed=9)
     ff = ffl(nb, 3, 2, rng)
@@ -157,7 +157,7 @@ def test_fully_connected_output_is_preactivation(nb):
     y, net2 = net.run(nb, x)
     z = wS @ s0 + wX @ x + b
     np.testing.assert_allclose(np.asarray(y), z, atol=1e-12)
-    from tensor_ops_tpu.models.neuralnet import logistic
+    from tensor_ops.models.neuralnet import logistic
 
     np.testing.assert_allclose(np.asarray(net2.states[0]), logistic(z), atol=1e-12)
 
@@ -346,7 +346,7 @@ def test_remat_scan_forward_identical(nb, jb):
 
 
 def test_remat_requires_divisor():
-    from tensor_ops_tpu.ops.shapes import ShapeError
+    from tensor_ops.ops.shapes import ShapeError
 
     step_net = make_rnn(T.NumpyBackend())
     with pytest.raises(ShapeError, match="divisor"):
@@ -354,7 +354,7 @@ def test_remat_requires_divisor():
 
 
 def test_sqrt_divisor_schedule():
-    from tensor_ops_tpu.ops.loops import _sqrt_divisor
+    from tensor_ops.ops.loops import _sqrt_divisor
 
     assert _sqrt_divisor(4096) == 64
     assert _sqrt_divisor(12) in (3, 4)

@@ -10,37 +10,30 @@ numerically — gradients must be BIT-identical to the on-device tape —
 and the knob composes with ``remat_every`` (only block-entry carries
 ever travel).  The reference unrolls BPTT at compile time with the
 whole tape in memory (``Recurrent.hs:392-463``); both the scan and its
-offload are the rebuild's TPU-native extension (SURVEY.md §2.5 memory
-ladder).
+offload are the rebuild's extension (SURVEY.md §2.5 memory ladder).
 
 On the CPU test backend host and device memory are the same DRAM, so
-these tests pin the SEMANTICS; the real-chip compile/run is covered by
-the TPU-gated test (``TOPS_TEST_TPU=1``)."""
+these tests pin the SEMANTICS; the on-card compile/run is covered by the
+``gpu``-marked test."""
 
-import os
 
 import numpy as np
 import pytest
 
 import jax
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     adam,
     squared_error,
 )
-from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-from tensor_ops_tpu.models.trainer import fit_sequences
-from tensor_ops_tpu.ops import ir
+from tensor_ops.models.recurrent import gen_net as gen_rnet
+from tensor_ops.models.trainer import fit_sequences
+from tensor_ops.ops import ir
 
 multi = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 devices (see conftest note)"
-)
-on_tpu = pytest.mark.skipif(
-    os.environ.get("TOPS_TEST_TPU") != "1"
-    or jax.default_backend() == "cpu",
-    reason="real-chip compile/run of the host-streamed tape",
 )
 
 
@@ -114,7 +107,7 @@ def test_fit_sequences_offload_activations(jb, kw):
 def test_offload_activations_on_mesh(jb):
     """offload_activations composes with dp×tp mesh training (and with
     offload_opt_state on top — both hosts-offload knobs at once)."""
-    from tensor_ops_tpu.parallel.mesh import make_mesh
+    from tensor_ops.parallel.mesh import make_mesh
 
     mesh = make_mesh(8, shape=(4, 2))
     XS, TS = _seq_data(n=8, b=16)
@@ -139,19 +132,14 @@ def test_offload_activations_validation(nb):
                       offload_activations=True, verbose=False)
 
 
-@on_tpu
-def test_offload_tape_on_tpu():
-    """Real-chip compile+run: the host-streamed tape produces the same
-    gradients as the on-device tape on actual TPU memory spaces.
-
-    f32 explicitly: f64 (the conftest's CPU-parity dtype) + a
-    host-offloaded scan SIGABRTs this libtpu's compiler — f64 is not a
-    TPU production dtype, so the knob is simply exercised at the dtype
-    it exists for (measured: plain/blocked/mixed f32 offload scans all
-    compile; the same blocked scan at f64 crashes)."""
+@pytest.mark.gpu
+def test_offload_tape_on_gpu():
+    """On-card compile+run: the host-streamed tape produces the same
+    gradients as the on-device tape on the card's real memory spaces,
+    at float32, the dtype the knob exists for."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.backend.jax_backend import JaxBackend
+    from tensor_ops.backend.jax_backend import JaxBackend
 
     be = JaxBackend(dtype=jnp.float32)
     net = _rnet(be)

@@ -21,11 +21,11 @@ partition and any crash/resume chain replays identical batches.
 import numpy as np
 import pytest
 
-import tensor_ops_tpu as T
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, fit_sequences, squared_error
-from tensor_ops_tpu.models import recurrent as R
-from tensor_ops_tpu.models.optim import adam, cosine_schedule
+import tensor_ops as T
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, fit_sequences, squared_error
+from tensor_ops.models import recurrent as R
+from tensor_ops.models.optim import adam, cosine_schedule
 
 
 def _mknet(be, seed=7):

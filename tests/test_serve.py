@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, act_softmax, gen_net
-from tensor_ops_tpu.models.fast import FusedMLP
-from tensor_ops_tpu.models.serve import Predictor
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, act_softmax, gen_net
+from tensor_ops.models.fast import FusedMLP
+from tensor_ops.models.serve import Predictor
 
 
 def make(jb):
@@ -52,10 +52,10 @@ def test_predictor_quantized_mlp(jb):
     f32 FusedMLP predictor across bucket boundaries."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, gen_net
-    from tensor_ops_tpu.models.fast import FusedMLP, QuantizedMLP
-    from tensor_ops_tpu.models.serve import Predictor
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, gen_net
+    from tensor_ops.models.fast import FusedMLP, QuantizedMLP
+    from tensor_ops.models.serve import Predictor
 
     rng = Rng(jb, seed=3)
     net = gen_net(jb, 12, 4, [(10, act_logistic())], act_softmax(), rng)
@@ -79,20 +79,20 @@ def test_predictor_quantized_mlp(jb):
         agree += int((a == b).sum())
         total += n
     # int8-vs-f32 argmax can differ on near-tie rows of an untrained
-    # random net; fidelity bounds live in test_pallas — here just sanity
+    # random net; fidelity bounds live in test_fast — here just sanity
     assert agree / total > 0.8, (agree, total)
     assert pq.latency()["n"] >= 5
 
 
 def test_predictor_quantized_uniform_uses_megakernel(jb):
-    """A uniform 128-multiple int8 stack routes through the whole-MLP
-    w8a8 megakernel path."""
+    """A uniform int8 stack serves through QuantizedMLP's one jitted
+    forward: the Predictor's padded answer equals ``run`` on the rows."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.models.fast import QuantizedMLP
-    from tensor_ops_tpu.models.serve import Predictor
-    from tensor_ops_tpu.ops.pallas_kernels import quantize_weights_int8
-    from tensor_ops_tpu.testing import rand
+    from tensor_ops.models.fast import QuantizedMLP
+    from tensor_ops.models.serve import Predictor
+    from tensor_ops.ops.int8 import quantize_weights_int8
+    from tensor_ops.testing import rand
 
     N = 128
     ws = [jnp.asarray(rand(70 + k, N, N) * 0.2, jnp.float32) for k in range(2)]
@@ -100,11 +100,10 @@ def test_predictor_quantized_uniform_uses_megakernel(jb):
     qs, ss = zip(*(quantize_weights_int8(w) for w in ws))
     qm = QuantizedMLP(tuple(qs), tuple(ss), tuple(bs), ("relu", "identity"))
     p = Predictor(qm, buckets=(8,))
-    assert p._q_uniform
     x = np.random.default_rng(1).uniform(0, 1, size=(5, N)).astype(np.float32)
     out = p.predict(x)
     np.testing.assert_allclose(np.asarray(out),
-                               np.asarray(qm.run_fused(x[:5]))[:5], atol=1e-5)
+                               np.asarray(qm.run(x[:5]))[:5], atol=1e-5)
 
 
 def test_serve_cli_roundtrip(tmp_path, jb):
@@ -114,12 +113,12 @@ def test_serve_cli_roundtrip(tmp_path, jb):
     import io
     import contextlib
 
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic, act_softmax, gen_net
-    from tensor_ops_tpu.models.training import batched_run
-    from tensor_ops_tpu.utils.checkpoint import save_network
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic, act_softmax, gen_net
+    from tensor_ops.models.training import batched_run
+    from tensor_ops.utils.checkpoint import save_network
 
-    import tensor_ops_tpu as T
+    import tensor_ops as T
 
     be = T.JaxBackend()
     rng = Rng(be, seed=1)
@@ -164,11 +163,11 @@ def test_serve_cli_relu_checkpoint_uses_stored_acts(tmp_path, jb):
     import io
 
     import apps.serve as serve_app
-    import tensor_ops_tpu as T
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_relu, act_softmax, gen_net
-    from tensor_ops_tpu.models.training import batched_run
-    from tensor_ops_tpu.utils.checkpoint import save_network
+    import tensor_ops as T
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_relu, act_softmax, gen_net
+    from tensor_ops.models.training import batched_run
+    from tensor_ops.utils.checkpoint import save_network
 
     be = T.JaxBackend()
     net = gen_net(be, 12, 4, [(8, act_relu())], act_softmax(),
@@ -217,8 +216,8 @@ def test_serve_cli_bf16_rejects_quantized_checkpoint(tmp_path, jb):
     import pytest
 
     import apps.serve as serve_app
-    from tensor_ops_tpu.models.fast import QuantizedMLP
-    from tensor_ops_tpu.utils.checkpoint import save_quantized
+    from tensor_ops.models.fast import QuantizedMLP
+    from tensor_ops.utils.checkpoint import save_quantized
 
     net = make(jb)
     qm = QuantizedMLP.from_fused(FusedMLP.from_network(net))
@@ -231,10 +230,10 @@ def test_serve_cli_bf16_rejects_quantized_checkpoint(tmp_path, jb):
 def test_sequence_predictor(jb):
     """SequencePredictor: batched whole-sequence serving equals the
     per-sequence run_seq fold; bucketing pads the batch axis."""
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.models.serve import SequencePredictor
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.serve import SequencePredictor
 
     rnet = gen_rnet(jb, 2, 1, [(5, act_logistic(), act_logistic())],
                     act_logistic(), None, Rng(jb, seed=1))
@@ -265,11 +264,11 @@ def test_serve_cli_recurrent_checkpoint(tmp_path, jb):
     import json as _json
 
     import apps.serve as serve_app
-    import tensor_ops_tpu as T
-    from tensor_ops_tpu.backend.rng import Rng
-    from tensor_ops_tpu.models import act_logistic
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.utils.checkpoint import save_recurrent
+    import tensor_ops as T
+    from tensor_ops.backend.rng import Rng
+    from tensor_ops.models import act_logistic
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.utils.checkpoint import save_recurrent
 
     be = T.JaxBackend()
     rnet = gen_rnet(be, 2, 1, [(5, act_logistic(), act_logistic())],
@@ -302,7 +301,7 @@ def test_serve_cli_recurrent_checkpoint(tmp_path, jb):
     assert len(rows) == 3 * 6                  # B x n timesteps
 
     # a wrong architecture dies cleanly, not with a KeyError
-    from tensor_ops_tpu.utils.checkpoint import load_arrays, save_arrays
+    from tensor_ops.utils.checkpoint import load_arrays, save_arrays
     arrays, meta = load_arrays(ck)
     meta.pop("arch")                           # simulate an old checkpoint
     ck_old = str(tmp_path / "old.npz")
@@ -329,7 +328,7 @@ def test_predictor_reload_hot_swaps(jb):
     continue across the swap."""
     import pytest
 
-    from tensor_ops_tpu.models.fast import QuantizedMLP
+    from tensor_ops.models.fast import QuantizedMLP
 
     rng = Rng(jb, seed=0)
     net_a = gen_net(jb, 4, 3, [(8, act_logistic())], act_softmax(), rng)
@@ -367,9 +366,9 @@ def test_predictor_reload_hot_swaps(jb):
 
     # kind may change to a Network when a backend is supplied.
     # 5e-3: the Network (staged-IR) and FusedMLP forwards are different
-    # XLA programs — on TPU at default matmul precision they differ by
-    # ~1e-3 (the documented device-parity bound); the assertion is that
-    # the swap took effect, not cross-path bit parity
+    # XLA programs — at a device's default matmul precision they differ
+    # by ~1e-3; the assertion is that the swap took effect, not
+    # cross-path bit parity
     pred.reload(net_b, be=jb)
     np.testing.assert_allclose(pred.predict(x), out_b, atol=5e-3)
 
@@ -377,7 +376,7 @@ def test_predictor_reload_hot_swaps(jb):
 def test_predictor_reload_keeps_dtype_knob(jb):
     """A bf16-storage deployment STAYS bf16 across reloads (the dtype
     knob is remembered), and the swap is one atomic assignment
-    (_serving carries model + routing flags together)."""
+    (_serving carries the model and its backend together)."""
     import jax.numpy as jnp
 
     rng = Rng(jb, seed=1)
@@ -391,8 +390,8 @@ def test_predictor_reload_keeps_dtype_knob(jb):
     assert pred.model.weights[0].dtype == jnp.bfloat16  # knob kept
     pred.reload(FusedMLP.from_network(net_b), dtype=None)
     assert pred.model.weights[0].dtype != jnp.bfloat16  # explicit reset
-    # (model, q_uniform, sharded, be) travel together — one assignment
-    assert isinstance(pred._serving, tuple) and len(pred._serving) == 4
+    # (model, be) travel together — one assignment
+    assert pred._serving == (pred.model, pred.be)
 
 
 def test_sequence_predictor_reload(jb):
@@ -401,10 +400,10 @@ def test_sequence_predictor_reload(jb):
     change; interface changes are rejected."""
     import pytest
 
-    from tensor_ops_tpu.backend.rng import Rng as _Rng
-    from tensor_ops_tpu.models import act_logistic as _log
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.models.serve import SequencePredictor
+    from tensor_ops.backend.rng import Rng as _Rng
+    from tensor_ops.models import act_logistic as _log
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.serve import SequencePredictor
 
     def rnet(seed):
         return gen_rnet(jb, 1, 1, [(6, _log(), _log())], _log(), None,
@@ -435,7 +434,7 @@ def test_predictor_bf16_reload_quantized_then_back(jb):
     bf16 storage without the operator re-asking."""
     import jax.numpy as jnp
 
-    from tensor_ops_tpu.models.fast import QuantizedMLP
+    from tensor_ops.models.fast import QuantizedMLP
 
     net_a = gen_net(jb, 4, 3, [(8, act_logistic())], act_softmax(),
                     Rng(jb, seed=11))
@@ -468,10 +467,10 @@ def test_sequence_predictor_reload_warms_union(jb):
     """ADVICE r3: reload(warm_lengths=...) warms the UNION of
     previously-warmed lengths and the extras — _warmed never claims a
     length the new rnet was not actually compiled for."""
-    from tensor_ops_tpu.backend.rng import Rng as _Rng
-    from tensor_ops_tpu.models import act_logistic as _log
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.models.serve import SequencePredictor
+    from tensor_ops.backend.rng import Rng as _Rng
+    from tensor_ops.models import act_logistic as _log
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.serve import SequencePredictor
 
     def rnet(seed):
         return gen_rnet(jb, 1, 1, [(6, _log(), _log())], _log(), None,
@@ -496,7 +495,7 @@ def test_predictor_soak_under_concurrent_reloads(jb):
     import threading
     import time as _time
 
-    from tensor_ops_tpu.models.fast import QuantizedMLP
+    from tensor_ops.models.fast import QuantizedMLP
 
     net_a = gen_net(jb, 4, 3, [(8, act_logistic())], act_softmax(),
                     Rng(jb, seed=21))

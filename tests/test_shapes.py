@@ -1,6 +1,6 @@
 import pytest
 
-from tensor_ops_tpu.ops.shapes import (
+from tensor_ops.ops.shapes import (
     ShapeError,
     as_shape,
     as_stack,

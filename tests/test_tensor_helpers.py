@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from tensor_ops_tpu import tensor as TT
-from tensor_ops_tpu.ops.shapes import ShapeError
+from tensor_ops import tensor as TT
+from tensor_ops.ops.shapes import ShapeError
 
 
-from tensor_ops_tpu.testing import rand as r  # noqa: E402
+from tensor_ops.testing import rand as r  # noqa: E402
 
 
 def test_konst_map_zip(backends):

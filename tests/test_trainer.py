@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import act_logistic, act_softmax, cross_entropy, gen_net
-from tensor_ops_tpu.models.optim import adam, momentum, sgd
-from tensor_ops_tpu.models.trainer import fit
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import act_logistic, act_softmax, cross_entropy, gen_net
+from tensor_ops.models.optim import adam, momentum, sgd
+from tensor_ops.models.trainer import fit
 
 
 def toy_data(n=200, seed=0):
@@ -44,7 +44,7 @@ def test_fit_with_validation_and_metrics(jb, tmp_path):
     net = make_net(jb, seed=3)
     mpath = str(tmp_path / "metrics.jsonl")
     cpath = str(tmp_path / "ckpt.npz")
-    from tensor_ops_tpu.models.optim import adam
+    from tensor_ops.models.optim import adam
 
     res = fit(net, loss, jb, X[:250], Y[:250], epochs=40, batch_size=50,
               lr=0.05, optimizer=adam(), val=(X[250:], labels[250:]),
@@ -56,7 +56,7 @@ def test_fit_with_validation_and_metrics(jb, tmp_path):
     # learnable task: accuracy should beat chance by the end
     assert recs[-1]["val_acc"] > 0.85
     # checkpoint restores
-    from tensor_ops_tpu.utils.checkpoint import load_network
+    from tensor_ops.utils.checkpoint import load_network
 
     restored = load_network(cpath, net, jb)
     assert len(restored.params) == len(net.params)
@@ -75,7 +75,7 @@ def test_fit_numpy_backend(nb):
 def test_clip_and_schedules():
     import numpy as np
 
-    from tensor_ops_tpu.models.optim import (
+    from tensor_ops.models.optim import (
         clip_by_global_norm,
         cosine_schedule,
         exponential_schedule,
@@ -97,8 +97,8 @@ def test_clip_and_schedules():
 def test_gradient_accumulation_matches_full_batch(jb):
     """accum_steps=4 over a batch == one full-batch step (same mean
     gradient, same update)."""
-    from tensor_ops_tpu.models.optim import sgd
-    from tensor_ops_tpu.models.trainer import make_opt_step
+    from tensor_ops.models.optim import sgd
+    from tensor_ops.models.trainer import make_opt_step
 
     X, Y, _ = toy_data(32, seed=9)
     loss = cross_entropy(2)
@@ -115,7 +115,7 @@ def test_gradient_accumulation_matches_full_batch(jb):
 
 
 def test_async_checkpoint(tmp_path, nb):
-    from tensor_ops_tpu.utils.checkpoint import load_arrays, save_arrays_async
+    from tensor_ops.utils.checkpoint import load_arrays, save_arrays_async
 
     fut = save_arrays_async(str(tmp_path / "a.npz"),
                             {"x": np.arange(4)}, {"k": 2})
@@ -127,8 +127,8 @@ def test_async_checkpoint(tmp_path, nb):
 def test_fit_clip_and_schedule_wiring(jb):
     """clip_norm bounds the effective update; lr_schedule drives the
     per-step lr without recompiling (the lr is a traced argument)."""
-    from tensor_ops_tpu.models.optim import cosine_schedule
-    from tensor_ops_tpu.models.trainer import make_opt_step
+    from tensor_ops.models.optim import cosine_schedule
+    from tensor_ops.models.trainer import make_opt_step
 
     X, Y, _ = toy_data(120, seed=5)
     loss = cross_entropy(2)
@@ -177,7 +177,7 @@ def test_fit_mixed_precision(jb):
     assert abs(res_mp.history[-1]["loss"] - res_fp.history[-1]["loss"]) < 0.15
 
     with pytest.raises(ValueError):
-        from tensor_ops_tpu.backend.numpy_backend import NumpyBackend
+        from tensor_ops.backend.numpy_backend import NumpyBackend
 
         fit(make_net(jb, seed=10), loss, NumpyBackend(), X, Y,
             mixed_precision=True)
@@ -189,7 +189,7 @@ def test_mixed_precision_auto_routes_and_caches(jb, tmp_path, monkeypatch):
     in the metrics JSONL and the .state checkpoint, is cached
     in-process (second fit of the same config never re-measures), and
     resume adopts the recorded route without measuring at all."""
-    import tensor_ops_tpu.models.trainer as TR
+    import tensor_ops.models.trainer as TR
 
     X, Y, _ = toy_data(120, seed=11)
     loss = cross_entropy(2)
@@ -210,7 +210,7 @@ def test_mixed_precision_auto_routes_and_caches(jb, tmp_path, monkeypatch):
     recs = [json.loads(l) for l in open(mpath)]
     assert recs[0]["mp_route"] == "f32"
     assert recs[0]["mp_f32_us"] == 100.0 and recs[0]["mp_bf16_us"] == 98.0
-    from tensor_ops_tpu.utils.checkpoint import load_meta
+    from tensor_ops.utils.checkpoint import load_meta
 
     assert load_meta(ck + ".state")["mp_route"] == "f32"
 
@@ -239,7 +239,7 @@ def test_mixed_precision_legacy_resume_adopts_bf16(jb, tmp_path,
     silently re-measuring into a mid-chain dtype flip."""
     import warnings
 
-    import tensor_ops_tpu.models.trainer as TR
+    import tensor_ops.models.trainer as TR
 
     X, Y, _ = toy_data(80, seed=13)
     loss = cross_entropy(2)
@@ -247,7 +247,7 @@ def test_mixed_precision_legacy_resume_adopts_bf16(jb, tmp_path,
     # the saving run used mixed_precision=False -> no mp_route in meta
     fit(make_net(jb, seed=22), loss, jb, X, Y, epochs=2, batch_size=40,
         lr=0.3, verbose=False, checkpoint_path=ck, checkpoint_every=2)
-    from tensor_ops_tpu.utils.checkpoint import load_meta
+    from tensor_ops.utils.checkpoint import load_meta
 
     assert "mp_route" not in load_meta(ck + ".state")
 
@@ -270,7 +270,7 @@ def test_mixed_precision_legacy_resume_adopts_bf16(jb, tmp_path,
 def test_normalize_mp_accepts_truthy_legacy_values():
     """Pre-router callers passed ints / numpy bools; they keep working
     with truthiness semantics, while unknown strings stay rejected."""
-    from tensor_ops_tpu.models.trainer import _normalize_mp
+    from tensor_ops.models.trainer import _normalize_mp
 
     assert _normalize_mp(1) == "auto"
     assert _normalize_mp(0) == "off"
@@ -283,7 +283,7 @@ def test_normalize_mp_accepts_truthy_legacy_values():
 def test_mixed_precision_auto_picks_bf16_when_clearly_faster(jb, monkeypatch):
     """A >3% bf16 win routes to bf16 — and the bf16 step actually runs
     (the batched-graph key lands in the compile cache)."""
-    import tensor_ops_tpu.models.trainer as TR
+    import tensor_ops.models.trainer as TR
 
     X, Y, _ = toy_data(80, seed=12)
     monkeypatch.setattr(TR, "_measure_mp_route",
@@ -306,9 +306,9 @@ def test_mixed_precision_rejects_unknown_value(jb):
 def test_fit_sequences_mixed_precision_auto_routes(jb, monkeypatch):
     """The same measure-once router runs on fit_sequences' dual-rate
     step (different step signature than fit's)."""
-    import tensor_ops_tpu.models.trainer as TR
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    import tensor_ops.models.trainer as TR
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     t = np.linspace(0, 2 * np.pi, 9, dtype=np.float64)
     XS = np.stack([np.sin(t[:-1] + p)[:, None]
@@ -349,7 +349,7 @@ def test_fit_prefetch_identical_to_no_prefetch(jb):
 
 
 def test_device_prefetcher_order_and_depth():
-    from tensor_ops_tpu.utils.native import DevicePrefetcher
+    from tensor_ops.utils.native import DevicePrefetcher
 
     class FakeLoader:
         def __init__(self):
@@ -374,7 +374,7 @@ def test_fit_resume_restores_optimizer_state(jb, tmp_path):
     """fit(resume=True) continues from params + Adam moments + step —
     the second run must match an uninterrupted run's final loss closely
     (identical modulo the loader's reshuffle position)."""
-    from tensor_ops_tpu.utils.checkpoint import load_train_state
+    from tensor_ops.utils.checkpoint import load_train_state
 
     X, Y, _ = toy_data(n=256, seed=5)
     loss = cross_entropy(2)
@@ -455,7 +455,7 @@ def test_fit_resume_exact_equivalence(jb, tmp_path):
 def test_loader_skip_matches_drained_stream():
     """NativeLoader.skip(n) lands the stream exactly where n next()
     calls would (both the native and the fallback path)."""
-    from tensor_ops_tpu.utils.native import NativeLoader
+    from tensor_ops.utils.native import NativeLoader
 
     r = np.random.default_rng(0)
     X = r.normal(size=(100, 3)).astype(np.float32)
@@ -489,9 +489,9 @@ def test_fit_sequences_trains_and_resumes(jb, tmp_path):
     """fit_sequences: the recurrent family gets the production loop —
     loss falls, and a crash/resume chain reproduces the uninterrupted
     run bit-exactly (same shuffle stream, states+params restored)."""
-    from tensor_ops_tpu.models import act_logistic, fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.utils.checkpoint import load_recurrent
+    from tensor_ops.models import act_logistic, fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.utils.checkpoint import load_recurrent
 
     XS, TS = _sine_sequences()
     loss = squared_error(1)
@@ -558,8 +558,8 @@ def test_fit_resume_equivalence_property(nb, tmp_path, cfg):
 
 def test_fit_sequences_resume_equivalence_property(nb, tmp_path):
     """Same property for the recurrent loop on the numpy backend."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences(n_seqs=24, T=5, seed=2)
     loss = squared_error(1)
@@ -588,9 +588,9 @@ def test_fit_sequences_optimizer_clip_schedule(jb, tmp_path):
     """fit_sequences now carries fit's full surface: adam + clip_norm +
     lr_schedule trains, and the crash/resume chain under adam restores
     the optimizer moments bit-exactly."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.optim import adam, cosine_schedule
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.optim import adam, cosine_schedule
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences(n_seqs=32, T=6, seed=7)
     loss = squared_error(1)
@@ -621,9 +621,9 @@ def test_fit_sequences_optimizer_clip_schedule(jb, tmp_path):
 
 
 def test_fit_sequences_optimizer_mismatch_rejected(jb, tmp_path):
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.optim import adam
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.optim import adam
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences(n_seqs=16, T=4, seed=8)
     loss = squared_error(1)
@@ -641,8 +641,8 @@ def test_fit_sequences_optimizer_mismatch_rejected(jb, tmp_path):
 
 def test_fit_sequences_remat_matches_plain(nb):
     """remat_every through the production loop: identical trajectory."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences(n_seqs=16, T=6, seed=9)
     loss = squared_error(1)
@@ -666,9 +666,9 @@ def test_fit_sequences_warmup_schedule_stays_finite(jb):
     """lr_schedule hitting 0 at step 0 (linear warmup) must not
     NaN-poison the optimizer path: the dual-rate ratio is passed as a
     constant, never computed as 0/0 in-step."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.optim import adam
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.optim import adam
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences(n_seqs=16, T=5, seed=12)
     rnet = gen_rnet(jb, 1, 1, [(4, act_logistic(), act_logistic())],
@@ -685,7 +685,7 @@ def test_fit_sequences_warmup_schedule_stays_finite(jb):
 def test_compiled_cache_thread_safe():
     import threading
 
-    from tensor_ops_tpu.ops.ir import CompiledCache
+    from tensor_ops.ops.ir import CompiledCache
 
     c = CompiledCache(maxsize=8)
     errors = []
@@ -711,9 +711,9 @@ def test_fit_sequences_accum_matches_plain(jb):
     """accum_steps on fit_sequences: accumulating 4 quarter-batch chunks
     inside the jitted step equals the plain full-batch step at 1e-9
     (the mean of equal-sized chunk means IS the batch mean)."""
-    from tensor_ops_tpu.models import (act_logistic, adam, fit_sequences,
+    from tensor_ops.models import (act_logistic, adam, fit_sequences,
                                        squared_error)
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences()
     loss = squared_error(1)
@@ -743,9 +743,9 @@ def test_accum_steps_zero_rejected_eagerly(jb):
     """accum_steps=0 (or negative) must raise a named error in BOTH fit
     loops — not silently train unaccumulated (fit_sequences' old `> 1`
     gate) or die in a ZeroDivisionError (fit's pipeline chunk math)."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
-    from tensor_ops_tpu.models.trainer import fit
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.trainer import fit
 
     X, Y, _ = toy_data(16, seed=9)
     net = make_net(jb, seed=10)
@@ -763,8 +763,8 @@ def test_accum_steps_zero_rejected_eagerly(jb):
 def test_fit_sequences_mixed_precision_trains(jb):
     """mixed_precision on fit_sequences: the bf16 scan-BPTT step trains
     (loss falls) while states+params stay full-precision masters."""
-    from tensor_ops_tpu.models import act_logistic, fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import act_logistic, fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences()
     net = gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],
@@ -813,9 +813,8 @@ def test_interrupt_saves_exact_resume_checkpoint(jb, tmp_path):
     straight = fit(net(), loss, jb, X, Y, epochs=2, lr_schedule=flat,
                    **kw)
     assert resumed.steps == straight.steps == 8
-    # 1e-12 (not 0): the TPU's software-emulated f64 can wobble 1 ulp
-    # between the resumed and straight runs (TESTING.md gotchas); CPU
-    # remains bit-identical
+    # 1e-12 (not 0): a device's f64 may wobble 1 ulp between the
+    # resumed and straight runs; CPU remains bit-identical
     for a, b in zip(resumed.net.params, straight.net.params):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    atol=1e-12, rtol=0)
@@ -823,8 +822,8 @@ def test_interrupt_saves_exact_resume_checkpoint(jb, tmp_path):
 
 def test_interrupt_saves_exact_resume_sequences(jb, tmp_path):
     """The same Ctrl-C semantics on the recurrent loop."""
-    from tensor_ops_tpu.models import fit_sequences, squared_error
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models import fit_sequences, squared_error
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     XS, TS = _sine_sequences()
     ck = str(tmp_path / "intrs.npz")

@@ -12,8 +12,8 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as PSpec
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -22,8 +22,8 @@ from tensor_ops_tpu.models import (
     momentum,
     squared_error,
 )
-from tensor_ops_tpu.models.trainer import fit, fit_sequences, make_opt_step
-from tensor_ops_tpu.parallel.mesh import (
+from tensor_ops.models.trainer import fit, fit_sequences, make_opt_step
+from tensor_ops.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     make_mesh,
@@ -182,7 +182,7 @@ def test_fit_zero1_pipeline_mesh(jb):
     """ZeRO-1 composes with the staged-IR pipeline: on a dp x stage
     mesh the packed stage rows' moments additionally shard over data,
     and the loss curve still equals the single-device run at 1e-9."""
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     h = 16
     rng = Rng(jb, seed=5)
@@ -216,7 +216,7 @@ def test_fit_zero1_pipeline_mesh(jb):
 def test_fit_sequences_zero1(jb):
     """ZeRO-1 on the recurrent loop: fit_sequences(mesh=dp x tp,
     shard_opt_state=True) == the replicated run at 1e-9."""
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     def mknet():
         return gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],

@@ -13,8 +13,8 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as PSpec
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -22,8 +22,8 @@ from tensor_ops_tpu.models import (
     gen_net,
     squared_error,
 )
-from tensor_ops_tpu.models.trainer import fit, fit_sequences, make_opt_step
-from tensor_ops_tpu.parallel.mesh import (
+from tensor_ops.models.trainer import fit, fit_sequences, make_opt_step
+from tensor_ops.parallel.mesh import (
     DATA_AXIS,
     make_mesh,
     param_specs,
@@ -127,7 +127,7 @@ def test_opt_step_zero2_equals_replicated(jb, accum):
     # structural signature in the lowered programs: the ZeRO-2 step
     # reassembles the params from per-rank update shards (a data-axis
     # all-gather per param — or a literal reduce-scatter where the
-    # backend keeps it, e.g. TPU), while the replicated step has NO
+    # backend keeps it), while the replicated step has NO
     # all-gather at all (its only dp collective is the grad all-reduce).
     # CPU's HLO pipeline expands reduce-scatter, hence the OR.  Only
     # sharp at accum=1: the accumulation scan makes XLA introduce its
@@ -189,7 +189,7 @@ def test_fit_zero2_pipeline_mesh(jb):
     """ZeRO-2 composes with the staged-IR pipeline: on a dp x stage mesh
     the packed stage rows' gradients reduce-scatter over data and the
     loss curve still equals the single-device run at 1e-9."""
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     h = 16
     r = np.random.default_rng(6)
@@ -219,7 +219,7 @@ def test_fit_zero2_pipeline_mesh(jb):
 def test_fit_sequences_zero2(jb):
     """ZeRO-2 on the recurrent loop: the joint state+param gradients
     reduce-scatter; == the replicated run at 1e-9."""
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     def mknet():
         return gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],
@@ -252,7 +252,7 @@ def test_zero2_memory_report_and_validation(jb):
     a non-shardable mesh warns loudly and continues."""
     import warnings
 
-    from tensor_ops_tpu.utils.profiling import training_memory_report
+    from tensor_ops.utils.profiling import training_memory_report
 
     mesh = make_mesh(8, shape=(4, 2))
     net = _net(jb)

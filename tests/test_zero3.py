@@ -15,8 +15,8 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as PSpec
 
-from tensor_ops_tpu.backend.rng import Rng
-from tensor_ops_tpu.models import (
+from tensor_ops.backend.rng import Rng
+from tensor_ops.models import (
     act_logistic,
     act_softmax,
     adam,
@@ -24,8 +24,8 @@ from tensor_ops_tpu.models import (
     gen_net,
     squared_error,
 )
-from tensor_ops_tpu.models.trainer import fit, fit_sequences, make_opt_step
-from tensor_ops_tpu.parallel.mesh import (
+from tensor_ops.models.trainer import fit, fit_sequences, make_opt_step
+from tensor_ops.parallel.mesh import (
     DATA_AXIS,
     make_mesh,
     param_specs,
@@ -213,7 +213,7 @@ def test_fit_zero3_pipeline_mesh(jb):
     """ZeRO-3 composes with the staged-IR pipeline: on a dp x stage mesh
     the packed stage rows themselves shard over data between steps and
     the loss curve still equals the single-device run at 1e-9."""
-    from tensor_ops_tpu.parallel.pipeline import make_dp_pipeline_mesh
+    from tensor_ops.parallel.pipeline import make_dp_pipeline_mesh
 
     h = 16
     r = np.random.default_rng(6)
@@ -243,7 +243,7 @@ def test_fit_zero3_pipeline_mesh(jb):
 def test_fit_sequences_zero3(jb):
     """ZeRO-3 on the recurrent loop: the joint states+params shard over
     data between steps; == the replicated run at 1e-9."""
-    from tensor_ops_tpu.models.recurrent import gen_net as gen_rnet
+    from tensor_ops.models.recurrent import gen_net as gen_rnet
 
     def mknet():
         return gen_rnet(jb, 1, 1, [(8, act_logistic(), act_logistic())],
@@ -282,8 +282,8 @@ def test_zero3_memory_report_plan_and_validation(jb):
     continues."""
     import warnings
 
-    from tensor_ops_tpu.parallel.plan import plan_meshes
-    from tensor_ops_tpu.utils.profiling import training_memory_report
+    from tensor_ops.parallel.plan import plan_meshes
+    from tensor_ops.utils.profiling import training_memory_report
 
     mesh = make_mesh(8, shape=(4, 2))
     net = _net(jb)
